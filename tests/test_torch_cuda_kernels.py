@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
-shapes the main path does not reach (ragged tiles, Sq != Sk, unusual head
-dims, strided views). Marked `cuda`: they skip without a CUDA device. This
-file imports nothing of JAX, so on a machine with a card it runs without
-the suite's conftest:
+shapes the main path does not reach (ragged tiles, Sq != Sk, head dims
+padded up to a built one, strided views). Marked `cuda`: they skip without
+a CUDA device. This file imports nothing of JAX, so on a machine with a
+card it runs without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_kernels.py
@@ -30,13 +30,13 @@ def _randn(gen, *shape):
 
 def _close(got, ref):
     err = (got.float() - ref).abs().max().item()
-    assert err <= TOL * max(1.0, ref.abs().max().item()), err
+    assert err <= TOL * ref.abs().max().item(), err
 
 
 @pytest.mark.parametrize("B,H,Sq,Sk,D", [
-    (2, 3, 100, 150, 24), (1, 2, 600, 77, 40), (3, 2, 65, 64, 72),
-    (2, 1, 1000, 1, 64), (1, 4, 17, 333, 128), (2, 2, 130, 200, 160),
-    (1, 2, 70, 90, 256), (2, 1, 129, 257, 512),
+    (2, 3, 100, 150, 40), (1, 2, 600, 77, 40), (3, 2, 65, 64, 72),
+    (2, 1, 1000, 1, 80), (1, 4, 17, 333, 152), (2, 2, 130, 200, 160),
+    (1, 2, 70, 90, 504), (2, 1, 129, 257, 512),
 ])
 def test_flash_matches_plain(gen, B, H, Sq, Sk, D):
     q, k, v = (_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
@@ -49,8 +49,8 @@ def test_flash_matches_plain(gen, B, H, Sq, Sk, D):
 
 
 @pytest.mark.parametrize("B,H,Sq,Sk,D", [
-    (5, 3, 22, 22, 40), (7, 2, 17, 30, 16), (3, 4, 64, 64, 160),
-    (9, 1, 33, 1, 80), (4, 2, 1, 64, 48), (2, 8, 64, 17, 128),
+    (5, 3, 22, 22, 40), (7, 2, 17, 30, 48), (3, 4, 64, 64, 160),
+    (9, 1, 33, 1, 80), (4, 2, 1, 64, 48), (2, 8, 64, 17, 152),
 ])
 def test_small_seq_matches_plain(gen, B, H, Sq, Sk, D):
     q, k, v = (_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
@@ -78,6 +78,9 @@ def test_kernels_refuse_bad_operands(gen):
         A.flash_attention(q.float(), q.float(), q.float(), 0.1)
     with pytest.raises(ValueError):
         A.flash_attention(q[..., :36], q[..., :36], q[..., :36], 0.1)
+    wide = _randn(gen, 1, 2, 64, 256)
+    with pytest.raises(ValueError):
+        A.flash_attention(wide, wide, wide, 0.1)  # no build for D = 256
     long = _randn(gen, 1, 2, 65, 40)
     with pytest.raises(ValueError):
         A.small_seq_attention(long, long, long, 0.1)  # S above 64

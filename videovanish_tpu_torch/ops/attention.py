@@ -32,8 +32,8 @@ from videovanish_tpu_torch.ops import kernels
 _LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
 
-# kernel launches by instance, e.g. "flash_attn_fwd[D=40,self]" (self: Sq ==
-# Sk, cross otherwise) or "small_seq_attn[tokenmajor,D=40,S=22]"
+# kernel launches by instance, e.g. "flash_attn_fwd[D=40,Sq=8160,Sk=77]" or
+# "small_seq_attn[tokenmajor,D=40,S=22]"
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -44,44 +44,35 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-def plain_attention(q, k, v, scale, is_causal=False, key_mask=None):
+def plain_attention(q, k, v, scale, is_causal=False, key_mask=None,
+                    max_score_bytes: int = 1 << 32):
     """Reference attention (`_xla_attention` semantics): f32 scores and
-    softmax, any shape. key_mask: optional (B, Sk) bool, False keys are
-    excluded."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if is_causal:
-        Sq, Sk = s.shape[-2], s.shape[-1]
-        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=s.device).tril(Sk - Sq)
-        s = s.masked_fill(~keep, _NEG_INF)
-    if key_mask is not None:
-        s = s.masked_fill(~key_mask[:, None, None, :], _NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
-    return out.to(q.dtype)
-
-
-def flash_attention_ref(q, k, v, scale, max_score_bytes: int = 1 << 32):
-    """Plain version of flash_attn_fwd: f32 scores and softmax over
-    (B, H, Sq, D) x (B, H, Sk, D), taken in query chunks so the f32 score
-    tensor stays under `max_score_bytes`."""
+    softmax over (B, H, Sq, D) x (B, H, Sk, D), taken in query chunks so the
+    f32 score tensor stays under `max_score_bytes`. key_mask: optional
+    (B, Sk) bool, False keys are excluded."""
     B, H, Sq, _ = q.shape
     Sk = k.shape[2]
     rows = max(1, max_score_bytes // max(1, B * H * Sk * 4))
     kf, vf = k.float(), v.float()
     out = []
     for i in range(0, Sq, rows):
-        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, i:i + rows].float(), kf)
-        p = torch.softmax(s * scale, dim=-1)
-        out.append(torch.einsum("bhqk,bhkd->bhqd", p, vf))
-    return torch.cat(out, dim=2).to(q.dtype)
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, i:i + rows].float(),
+                         kf) * scale
+        if is_causal:
+            keep = torch.ones(s.shape[-2], Sk, dtype=torch.bool,
+                              device=s.device).tril(Sk - Sq + i)
+            s = s.masked_fill(~keep, _NEG_INF)
+        if key_mask is not None:
+            s = s.masked_fill(~key_mask[:, None, None, :], _NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out.append(torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vf))
+    return (out[0] if len(out) == 1 else torch.cat(out, dim=2)).to(q.dtype)
 
 
-def small_seq_attention_ref(q, k, v, scale):
-    """Plain version of small_seq_attn: an exact dense softmax per
-    (sequence, head) in f32, over (B, H, Sq, D) x (B, H, Sk, D)."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+# the plain versions of flash_attn_fwd and small_seq_attn: both kernels
+# compute exactly this function
+flash_attention_ref = plain_attention
+small_seq_attention_ref = plain_attention
 
 
 # ---------------------------------------------------------------------------
@@ -154,8 +145,7 @@ def flash_attention(q, k, v, scale):
     out = _bhsd_out(q)
     _check_operands(q, k, v, out)
     _launch(lib.vv_flash_attn_fwd, q, k, v, out, scale)
-    kind = "self" if q.shape[2] == k.shape[2] else "cross"
-    LAUNCHES[f"flash_attn_fwd[D={D},{kind}]"] += 1
+    LAUNCHES[f"flash_attn_fwd[D={D},Sq={q.shape[2]},Sk={k.shape[2]}]"] += 1
     return out
 
 

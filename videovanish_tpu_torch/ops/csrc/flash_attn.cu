@@ -244,11 +244,11 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace vv
 
-// Padded head dims this library is built for; the wrapper refuses others.
+// Padded head dims this library is built for: those the port dispatches
+// (SD1.5 heads of 40/80/160, the VAE's 512); the wrapper refuses others.
 extern "C" int vv_flash_supported(int dp) {
   switch (dp) {
-    case 16: case 32: case 48: case 64: case 80: case 96: case 128:
-    case 160: case 256: case 512:
+    case 48: case 80: case 160: case 512:
       return 1;
     default:
       return 0;
@@ -265,15 +265,9 @@ extern "C" int vv_flash_attn_fwd(const void* q, const void* k, const void* v,
   const int dp = (D + 15) / 16 * 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dp) {
-    case 16:  return vv::launch_flash<16, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 32:  return vv::launch_flash<32, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 48:  return vv::launch_flash<48, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 64:  return vv::launch_flash<64, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 80:  return vv::launch_flash<80, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 96:  return vv::launch_flash<96, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 128: return vv::launch_flash<128, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 160: return vv::launch_flash<160, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 256: return vv::launch_flash<256, 2, 32>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 512: return vv::launch_flash<512, 4, 32>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     default:  return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -200,8 +200,8 @@ int launch_small(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" int vv_small_seq_supported(int dp, int sq, int sk) {
   if (sq < 1 || sk < 1 || sq > vv::kSmallMaxS || sk > vv::kSmallMaxS) return 0;
   if (vv::small_warp_smem(dp, sq, sk) > vv::kSmemCeiling) return 0;
-  switch (dp) {
-    case 16: case 32: case 48: case 64: case 80: case 96: case 128: case 160:
+  switch (dp) {  // the motion modules' head dims 40/80/160, padded
+    case 48: case 80: case 160:
       return 1;
     default:
       return 0;
@@ -219,13 +219,8 @@ extern "C" int vv_small_seq_attn(const void* q, const void* k, const void* v,
   const int dp = (D + 15) / 16 * 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dp) {
-    case 16:  return vv::launch_small<16>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 32:  return vv::launch_small<32>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 48:  return vv::launch_small<48>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 64:  return vv::launch_small<64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 80:  return vv::launch_small<80>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 96:  return vv::launch_small<96>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 128: return vv::launch_small<128>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 160: return vv::launch_small<160>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     default:  return static_cast<int>(cudaErrorInvalidValue);
   }
