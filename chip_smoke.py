@@ -22,6 +22,11 @@
 5. prints one {"kernels": [...]} line, the card line, and last
    {"ok": true, "device": {...}}.
 
+After the build it prints each kernel's `ptxas` lines (registers, spills,
+warnings) and, where the toolkit has `cuobjdump`, the count of HGMMA (wgmma)
+instructions and the highest register in each flash instantiation's SASS;
+a flash instantiation without HGMMA fails the run.
+
 Any failure raises and exits non-zero.
 """
 from __future__ import annotations
@@ -30,6 +35,8 @@ import argparse
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -66,6 +73,47 @@ def exp2_rate() -> tuple[float, float]:
     mhz = float(out) if out.replace(".", "", 1).isdigit() else 1980.0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sms * EX2_PER_SM_CLOCK * mhz * 1e6, mhz * 1e6
+
+
+def sass_stats(lib_path) -> dict[str, tuple[int, int]] | None:
+    """(HGMMA instructions, highest register index) per kernel function in
+    the library's SASS (cuobjdump -sass); None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    stats, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            stats[fn] = [0, 0]
+        elif fn is not None:
+            stats[fn][0] += "HGMMA" in line
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+            stats[fn][1] = max([stats[fn][1], *regs])
+    return {fn: (n, r) for fn, (n, r) in stats.items()}
+
+
+def check_flash_sass(lib_path) -> None:
+    """Print the HGMMA count and highest register of every
+    flash_fwd_kernel instantiation and fail if one has no HGMMA."""
+    stats = sass_stats(lib_path)
+    if stats is None:
+        print("[sass] cuobjdump not found: HGMMA count not taken")
+        return
+    flash = {fn: st for fn, st in stats.items() if "flash_fwd_kernel" in fn}
+    if not flash:
+        raise RuntimeError("no flash_fwd_kernel in the library's SASS")
+    for fn, (n, reg) in sorted(flash.items()):
+        args = re.search(r"flash_fwd_kernelI((?:Li\d+E)+)E", fn)
+        vals = re.findall(r"Li(\d+)E", args.group(1)) if args else [fn]
+        print(f"[sass] flash_fwd_kernel<DK, BN, STAGES, SPLIT, NWG"
+              f" = {', '.join(vals)}>: {n} HGMMA, registers up to R{reg}")
+    missing = [fn for fn, (n, _) in flash.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"flash instantiations without HGMMA: {missing}")
 
 
 def time_ms(fn, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
@@ -225,10 +273,12 @@ def run_kernel_phase(ex2_per_s: float, seed: int = 0):
                "shape": {"B": B, "H": H, "Sq": Sq, "Sk": Sk, "D": D},
                "launches": 0, "max_abs_err": err,
                "tolerance": limit, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+               "bound_share": b_ms / ms, "library_ratio": library_ms / ms}
         print(f"[kernel] {key} err={err:.3e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.3f} sdpa_ms={library_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+              f"bound_ms={b_ms:.4f} ({b_by}) bound/ms={b_ms / ms:.3f} "
+              f"sdpa/ms={library_ms / ms:.3f}", flush=True)
         if not math.isfinite(err) or err > limit:
             raise RuntimeError(f"{key}: max|kernel - plain| = {err} exceeds "
                                f"{limit}")
@@ -361,8 +411,10 @@ def main(argv=None) -> int:
         log = path.with_suffix(".log").read_text() \
             if path.with_suffix(".log").exists() else ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill",
+                                       "warning")):
                 print(f"[ptxas] {line.strip()}")
+    check_flash_sass(built["flash_attn"])
 
     rows = run_kernel_phase(ex2_per_s, args.seed)
     counts, report = run_main_path(args.seed)

@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Ablation probe of the flash_attn_fwd kernel on the card.
+
+    python3 scripts/flash_ablation.py [--shapes d40]
+
+Builds variants of `videovanish_tpu_torch/ops/csrc/flash_attn.cu`, each
+with one part of the per-tile work taken out or changed (the exponentials,
+the bf16 conversion of P, the whole softmax, the P V products, the
+ping-pong hand-over between the consumer warpgroups, the number of
+consumer warpgroups, the key-tile width or the ring depth), and times each beside the unmodified kernel at main-path
+shapes. The variants that drop work compute wrong results: they only show
+what that part costs. Times are CUDA-event means (chip_smoke.time_ms),
+taken in two passes in opposite orders and averaged; the card's name and
+power limit are printed first.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+# the dispatch lines of the built instances, as flash_attn.cu has them
+D48 = "launch_flash<48, 128, 2, 1, 3>"
+D80 = "launch_flash<80, 128, 2, 1, 2>"
+
+
+def swap(line: str, config: str):
+    """Edit that builds instance `line` with template arguments `config`."""
+    return [(re.escape(line), line.split("<")[0] + f"<{config}>")]
+
+
+# (pattern, replacement) pairs applied with re.subn; each must match
+VARIANTS = {
+    "kernel": [],
+    "no_ex2": [(re.escape("ex2_approx(fmaf(acc_s[i], scale_log2e, neg_m[r]))"),
+                "fmaf(acc_s[i], scale_log2e, neg_m[r])")],
+    "no_convert": [(r"pack_f32\(acc_s\[(8 \* kk \+ \d)\], acc_s\[(8 \* kk \+ \d)\]\)",
+                    r"(__float_as_uint(acc_s[\1]) ^ __float_as_uint(acc_s[\2]))")],
+    "no_softmax": [(re.escape("auto softmax = [&](int kt) {\n"),
+                    "auto softmax = [&](int kt) {\n"
+                    "      alpha[0] = alpha[1] = 1.f;\n      return;\n")],
+    "no_pv": [(re.escape("WgmmaRS<C::NO>::mma(acc_o, pa[kk], db);"),
+               "(void)db;")],
+    "no_pingpong": [(re.escape("named_bar_sync(1 + wg, 256);"), ""),
+                    (re.escape("if (wg != NWG - 1 || !last) "
+                               "named_bar_arrive(1 + (wg + 1) % NWG, 256);"),
+                     "(void)last;"),
+                    (re.escape("if (wg == NWG - 1) named_bar_arrive(1, 256);"),
+                     "")],
+    # D = 48: consumer warpgroups, key-tile width, ring depth
+    "d48_nwg2": swap(D48, "48, 128, 2, 1, 2"),
+    "d48_nwg2_bn64": swap(D48, "48, 64, 2, 1, 2"),
+    "d48_nwg2_stages3": swap(D48, "48, 128, 3, 1, 2"),
+    "d48_nwg2_stages4": swap(D48, "48, 128, 4, 1, 2"),
+    "d48_nwg2_stages6": swap(D48, "48, 128, 6, 1, 2"),
+    "d48_nwg2_bn64_stages6": swap(D48, "48, 64, 6, 1, 2"),
+    "d48_nwg3_stages3": swap(D48, "48, 128, 3, 1, 3"),
+    "d48_nwg3_bn64": swap(D48, "48, 64, 4, 1, 3"),
+    "d48_nwg4_bn64": swap(D48, "48, 64, 2, 1, 4"),
+    "d48_nwg4_bn64_stages4": swap(D48, "48, 64, 4, 1, 4"),
+    "d80_nwg3_bn64": swap(D80, "80, 64, 3, 1, 3"),
+}
+
+SHAPES = {
+    "d40": [(22, 8, 8160, 8160, 40), (22, 8, 4096, 4096, 40)],
+    "d80": [(22, 8, 2040, 2040, 80)],
+    "d512": [(8, 1, 8160, 8160, 512)],
+}
+
+
+def variant_source(edits) -> str:
+    src = (ROOT / "videovanish_tpu_torch/ops/csrc/flash_attn.cu").read_text()
+    for pattern, repl in edits:
+        src, n = re.subn(pattern, repl, src)
+        if n == 0:
+            raise RuntimeError(f"pattern not in flash_attn.cu: {pattern}")
+    return src
+
+
+def build(names) -> dict[str, ctypes.CDLL]:
+    from videovanish_tpu_torch.ops import kernels
+    out = ROOT / "build" / "flash_ablation"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        cu = out / f"{name}.cu"
+        cu.write_text(variant_source(VARIANTS[name]))
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
+               "-o", str(out / f"{name}.so"), str(cu)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    restype, argtypes = kernels.LIBRARIES["flash_attn"][1]["vv_flash_attn_fwd"]
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
+        for line in log.splitlines():
+            if "spill" in line and not line.strip().startswith("0 bytes"):
+                print(f"[ptxas] {name}: {line.strip()}")
+        lib = ctypes.CDLL(str(out / f"{name}.so"))
+        lib.vv_flash_attn_fwd.restype = restype
+        lib.vv_flash_attn_fwd.argtypes = argtypes
+        libs[name] = lib
+    return libs
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--shapes", default="d40", help="comma list of "
+                    + ", ".join(SHAPES))
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    args = ap.parse_args(argv)
+
+    import torch
+    from chip_smoke import card_line, time_ms
+    from videovanish_tpu_torch.ops import attention as A
+    if not torch.cuda.is_available():
+        print("flash_ablation: no CUDA device", file=sys.stderr)
+        return 2
+    print(f"[card] {card_line()}", flush=True)
+    names = args.variants.split(",")
+    libs = build(names)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for key in args.shapes.split(","):
+        for B, H, Sq, Sk, D in SHAPES[key]:
+            q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16).permute(0, 2, 1, 3)
+                       for S in (Sq, Sk, Sk))
+            out = A._bhsd_out(q)
+            scale = D ** -0.5
+
+            def run(name):
+                return lambda: A._launch(libs[name].vv_flash_attn_fwd, q, k,
+                                         v, out, scale)
+            run("kernel")()
+            ref = A.flash_attention_ref(q[:1].float(), k[:1].float(),
+                                        v[:1].float(), scale)
+            err = (out[:1].float() - ref).abs().max().item()
+            ms = {n: [] for n in names}
+            for order in (names, names[::-1]):
+                for n in order:
+                    ms[n].append(time_ms(run(n)))
+            row = " ".join(f"{n}={sum(t) / len(t):.4f}" for n, t in ms.items())
+            print(f"[ablation] B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
+                  f"(kernel err vs plain on batch 0: {err:.2e}) ms: {row}",
+                  flush=True)
+            del q, k, v, out
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

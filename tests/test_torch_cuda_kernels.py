@@ -48,6 +48,61 @@ def test_flash_matches_plain(gen, B, H, Sq, Sk, D):
                                       D ** -0.5))
 
 
+def _flash_check(q, k, v):
+    D = q.shape[-1]
+    n = sum(A.LAUNCHES.values())
+    got = A.flash_attention(q, k, v, D ** -0.5)
+    assert sum(A.LAUNCHES.values()) == n + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, A.flash_attention_ref(q.float(), k.float(), v.float(),
+                                      D ** -0.5))
+
+
+# the flash kernel's tile edges: 64 query rows per consumer warpgroup, 192
+# per CTA at D = 40, 128 at D = 80/160, 64 at D = 512; key tiles of 128
+# (D <= 80) or 64 (D = 160, 512)
+@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 127, 128, 129, 191, 192, 193])
+@pytest.mark.parametrize("D", [40, 160, 512])
+def test_flash_query_tile_edges(gen, Sq, D):
+    B, H, Sk = (2, 3, 90) if D < 512 else (1, 1, 90)
+    _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                 _randn(gen, B, H, Sk, D))
+
+
+@pytest.mark.parametrize("Sk", [1, 2, 63, 64, 65, 100, 127, 128, 129, 257])
+@pytest.mark.parametrize("D", [40, 80, 512])
+def test_flash_key_tile_edges(gen, Sk, D):
+    B, H, Sq = (1, 2, 150) if D < 512 else (1, 1, 70)
+    _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                 _randn(gen, B, H, Sk, D))
+
+
+@pytest.mark.parametrize("D", [40, 72, 80, 152, 160, 504, 512])
+def test_flash_last_head_of_token_major_storage(gen, D):
+    """q/k/v are head splits of (B, S, H+1, D) storage with the extra head
+    dropped, so the bytes past each head's D (and past the last head) hold
+    other data: the kernel must read none of them."""
+    B, H, Sq, Sk = (2, 4, 200, 300) if D < 500 else (2, 1, 130, 200)
+
+    def view(S):
+        return _randn(gen, B, S, H + 1, D)[:, :, :H].permute(0, 2, 1, 3)
+    _flash_check(view(Sq), view(Sk), view(Sk))
+
+
+@pytest.mark.parametrize("D", [40, 160, 512])
+def test_flash_rows_far_below_the_rest(gen, D):
+    """Rows whose scores all lie far below those of other rows (and one row
+    far above): the per-row max keeps every exponent near 0, so the sums
+    stay finite and nonzero."""
+    B, H, Sq, Sk = 1, 2, 140, 300
+    u = torch.ones(D, device="cuda", dtype=torch.bfloat16)
+    k = _randn(gen, B, H, Sk, D) + 4 * u
+    q = _randn(gen, B, H, Sq, D)
+    q[:, :, :5] -= 6 * u
+    q[:, :, 7] += 6 * u
+    _flash_check(q, k, _randn(gen, B, H, Sk, D))
+
+
 @pytest.mark.parametrize("B,H,Sq,Sk,D", [
     (5, 3, 22, 22, 40), (7, 2, 17, 30, 48), (3, 4, 64, 64, 160),
     (9, 1, 33, 1, 80), (4, 2, 1, 64, 48), (2, 8, 64, 17, 152),

@@ -1,9 +1,10 @@
 """The port's run_infill_on_frames against the JAX package's, end to end on
-the CPU at the tests/test_e2e_quality.py geometry (64x64, 12 frames,
-windows of 6 overlapping by 2), with the prior passed in and the same
-weights and noise: uint8-identical where the feathered alpha is 0, PSNR
-above 45 dB where it is not. Plus the window plan, the blend ramps, the
-resizes against cv2, and the missing-prior error.
+the CPU at a small geometry (64x64, 8 frames: two windows of 6 overlapping
+by 2, so the window blend runs; a two-level UNet and BrushNet, which have
+every block kind of SD1.5's four levels at half the JAX compile time), with
+the prior passed in and the same weights and noise: uint8-identical where
+the feathered alpha is 0, PSNR above 45 dB where it is not. Plus the window
+plan, the blend ramps, the resizes against cv2, and the missing-prior error.
 """
 import cv2
 import jax
@@ -33,9 +34,9 @@ from videovanish_tpu_torch.ops.morphology import binarize_and_dilate
 from videovanish_tpu_torch.pipeline import infill as pinfill
 
 H = W = 64
-T = 12
+T = 8
 GEOMETRY = dict(max_img_size=H, clip_length=6, clip_overlap=2,
-                block_out_channels=(32, 64, 64, 64), layers_per_block=1,
+                block_out_channels=(32, 64), layers_per_block=1,
                 cross_attention_dim=64, attention_head_dim=8,
                 vae_block_out_channels=(16, 16, 16, 16))
 FEATHER = 3

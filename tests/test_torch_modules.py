@@ -24,7 +24,10 @@ from videovanish_tpu_torch.models.diffueraser.brushnet import BrushNetModel
 from videovanish_tpu_torch.models.diffueraser.unet import UNetCondition
 from videovanish_tpu_torch.models.diffueraser.vae import AutoencoderKL
 
-CH, LAYERS, HEADS, CTX = (32, 64, 64, 64), 1, 8, 64
+# the UNet / BrushNet pair has two levels: the block kinds of SD1.5's four
+# (cross-attention down, plain down, mid, plain up, cross-attention up, a
+# motion module in each) at half the compile time of four levels
+CH, LAYERS, HEADS, CTX = (32, 64), 1, 8, 64
 
 
 def _np_tree(tree):
@@ -254,7 +257,10 @@ def test_spatial_attention_record_replay(unet_pair, port_brushnet_feats):
                              cache=cache))
         exact2 = _nhwc(u["pu"](_nchw(u["x2"]), tt, tc, T,
                                *port_brushnet_feats))
-    assert n_recorded == 2 * 10  # attn1 + attn2 of every Transformer2D
+    # attn1 + attn2 of every Transformer2D: layers_per_block in each
+    # cross-attention down level, one more in each up level, one in the mid
+    n_transformers = (len(CH) - 1) * (2 * LAYERS + 1) + 1
+    assert n_recorded == 2 * n_transformers
     np.testing.assert_allclose(got1, u["ref1"], atol=2e-4)
     np.testing.assert_allclose(got2, u["ref2"], atol=2e-4)
     assert np.abs(got2 - exact2).max() > 1e-3  # the replay is really used

@@ -118,8 +118,8 @@ def _launch(fn, q, k, v, out, scale):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, Sq, k.shape[2], D, strides, float(scale) * _LOG2E,
             torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+    if rc != 0:  # a cudaError_t, or 1000 + the CUresult of a tensor map
+        raise RuntimeError(f"{fn.__name__} failed: error {rc}")
 
 
 def _bhsd_out(q):

@@ -5,240 +5,505 @@
 //                               (SD1.5 spatial attention, D = 40/80/160)
 //   _flash_kernel_iota   (:120) lane-aligned head dims (the VAE mid-block's
 //                               single 512-wide head)
-// Both compute softmax(q k^T * scale) v with f32 running max / sum; here one
-// template covers both.
+// Both compute softmax(q k^T * scale) v with an f32 running max and sum;
+// one template covers both.
 //
-// What bounds it on an H100: at the main path's self-attention shapes
-// (S = 8160 tokens, D = 40) the work is 4*S^2*D flops on the tensor cores
-// against S^2 exponentials on the special-function units, and at D = 40 the
-// exponentials are the larger bound (about 16 ex2 per SM per clock against
-// 1024 bf16 FMAs). Bytes are small: q/k/v/o are read and written once per
-// query tile. At D = 512 the tensor cores bound it.
+// What bounds it on an H100. Per score it does 2*D tensor-core flops for
+// q k^T, 2*D for p v, and one exponential. The special-function units give
+// 16 ex2 per SM per clock against 4096 bf16 flops, so at D = 40 (48 in the
+// products) the exponentials are the bound, with the tensor cores close
+// behind; at D = 80 and up the tensor cores are. q/k/v/o bytes are small.
+// In practice the D = 40 instance is held back by latency: dropping the
+// softmax or the p v products entirely saves only a few per cent
+// (scripts/flash_ablation.py), and what helped was more warpgroups in
+// flight. A 64-row query tile at D = 512 re-reads 2 KB of K and V per key
+// from L2 and its products read Q and K from shared memory, so shared
+// memory and L2 bandwidth come close to bounding that instance.
 //
 // Design:
-//   * one CTA per (batch*head, 64-query tile); the loop over key tiles inside
-//     the CTA takes the place of the TPU grid's sequential KV axis;
-//   * 4 row warps of 16 queries each; products on bf16 tensor cores with
-//     mma.sync m16n8k16, f32 accumulators, exp2 with scale*log2(e) folded
-//     into the score scaling;
-//   * D is zero-padded to DP (a multiple of 16, the MMA depth) in shared
-//     memory, which is exact; ragged key rows are zero-filled on load and
-//     their scores set to -inf before the row max; ragged query rows are
-//     computed on zeros and never stored;
-//   * wide heads (D = 512) do not fit a warp's output accumulator in
-//     registers, so WN column warps split D: each computes a partial
-//     q k^T over its D slice, the partials are summed through shared memory,
-//     and each warp then owns the output columns of its slice;
+//   * one CTA per (batch*head, query tile) with NWG consumer warpgroups and
+//     one producer warpgroup (warp specialisation). The producer gives its
+//     registers to the consumers (setmaxnreg) and one of its threads issues
+//     every load;
+//   * loads are TMA (cp.async.bulk.tensor, 4-D tensor maps over the
+//     (B, S, H, D) storage behind the (B, H, S, D) views, 64-column boxes,
+//     128-byte swizzle), completing on mbarriers. TMA rather than cp.async:
+//     it zero-fills whatever lies outside the tensor, so padding D up to the
+//     box (40 -> 64), the ragged Sq and Sk tails and the last head cost no
+//     instructions and read nothing out of bounds; and one thread issues a
+//     whole tile. Q is loaded once; K and V go through a ring of STAGES
+//     slots with separate full/empty barriers, so K of the next tile loads
+//     while the consumers still run p v on the current V;
+//   * both products are wgmma: S = Q K^T with Q and K K-major in shared
+//     memory (depth DK, the head dim padded to 16), O += P V with P taken
+//     from registers (the S accumulator converted in place to bf16, whose
+//     layout is the A-fragment layout) and V MN-major (transpose bit), at
+//     N = DK output columns (48/80/160), not the 64-column box;
+//   * softmax: the row max is taken on the raw scores, and every
+//     exponential is one FFMA (s * scale*log2e - m * scale*log2e, so the
+//     scale costs nothing per score) feeding ex2.approx.ftz. Only the last
+//     key tile, and only when Sk is ragged, is masked;
+//   * D <= 160 (SPLIT = 1): each consumer warpgroup owns 64 query rows and
+//     all output columns (3 warpgroups, 192 rows, at D = 40; 2 at D = 80
+//     and 160, whose accumulators need the registers). Each warpgroup
+//     issues S of tile kt together with P V of tile kt-1 and computes the
+//     exponentials of tile kt while that P V runs; named barriers pass the
+//     turn to issue products from warpgroup to warpgroup (ping-pong);
+//   * D = 512 (SPLIT = 2): the 64 x 512 f32 output does not fit one
+//     warpgroup's registers, so two warpgroups share 64 query rows and own
+//     256 output columns each. Warpgroup 0 computes the scores and softmax
+//     and hands P (bf16) and the row factors to warpgroup 1 through a
+//     double-buffered shared-memory slot. Both warpgroups computing the
+//     scores instead (1.5x the products) measured slower;
 //   * a row whose softmax sum is 0 is divided by 1, as the TPU kernels do;
-//   * q/k/v/o are read through (batch, head, row) strides with contiguous
-//     head dim, so the (B, S, H*D) projection output needs no transpose copy.
+//     the output goes to (B, S, H, D) storage through its strides.
+#include <cuda.h>
+
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace vv {
 
-constexpr int kFlashBM = 64;  // query rows per CTA
+// DK: head dim padded to 16 (the q k^T depth); BN: keys per tile; STAGES:
+// K/V ring depth; SPLIT: warpgroups sharing one 64-row query block (1, or 2
+// at D = 512, where warpgroup 0 computes the scores and hands P to
+// warpgroup 1 through shared memory); NWG: consumer warpgroups (warpgroup
+// NWG is the producer)
+template <int DK, int BN, int STAGES, int SPLIT, int NWG>
+struct FlashCfg {
+  static constexpr int THREADS = 128 * (NWG + 1);
+  // registers per thread: LAUNCH (a multiple of 8) at launch, then the
+  // producer drops to PROD and the consumers rise to CONS; setmaxnreg only
+  // moves registers the CTA already holds, so NWG*128*CONS + 128*PROD must
+  // stay within THREADS*LAUNCH or the consumers wait forever
+  static constexpr int LAUNCH = 65536 / THREADS / 8 * 8;
+  static constexpr int PROD = NWG == 2 ? 40 : 24;
+  static constexpr int CONS_FIT =
+      (THREADS * LAUNCH - 128 * PROD) / (128 * NWG) / 8 * 8;
+  static constexpr int CONS = CONS_FIT < 232 ? CONS_FIT : 232;
+  static constexpr int DP = (DK + 63) / 64 * 64;  // columns kept per row
+  static constexpr int CH = DP / 64;              // 64-column boxes per row
+  static constexpr int BM = 64 * NWG / SPLIT;     // query rows per CTA
+  static constexpr int NO = DK / SPLIT;  // output columns per warpgroup
+  static constexpr int Q_BYTES = BM * DP * 2;
+  static constexpr int KV_BYTES = BN * DP * 2;
+  // SPLIT = 2: two P buffers (64 x BN bf16), their row factors, row sums
+  static constexpr int P_BYTES = SPLIT == 2 ? 2 * 64 * BN * 2 + 3 * 64 * 4 : 0;
+  static constexpr int N_BARS = 1 + 4 * STAGES + (SPLIT == 2 ? 4 : 0);
+  static constexpr int K_READERS = SPLIT == 2 ? 1 : NWG;  // warpgroups on K
+  static constexpr int SMEM =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + P_BYTES + 8 * N_BARS;
+  static_assert(DK % 16 == 0 && BN % 16 == 0 && (SPLIT == 1 || NO % 64 == 0),
+                "tile shape");
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(SPLIT == 1 || NWG == 2, "P is shared by two warpgroups");
+};
 
-template <int DP, int WN, int BN>
-__global__ void __launch_bounds__(128 * WN)
-flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                 const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-                 int H, int Sq, int Sk, int D,
-                 long long qsb, long long qsh, long long qss,
-                 long long ksb, long long ksh, long long kss,
-                 long long vsb, long long vsh, long long vss,
+template <int DK, int BN, int STAGES, int SPLIT, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 uint16_t* __restrict__ o, int H, int Sq, int Sk, int D,
                  long long osb, long long osh, long long oss,
                  float scale_log2e) {
-  constexpr int BM = kFlashBM;
-  constexpr int DW = DP / WN;     // head-dim columns owned by one warp
-  constexpr int LD = DP + 8;      // shared-memory row pitch (elements)
-  constexpr int NT_S = BN / 8;    // score n-tiles per key tile
-  constexpr int NT_O = DW / 8;    // output n-tiles per warp
-  constexpr int KS_D = DW / 16;   // k-steps over the warp's D slice
-  constexpr int KS_N = BN / 16;   // k-steps over the key tile
-  static_assert(DW % 16 == 0 && BN % 16 == 0, "tile shape");
+  using C = FlashCfg<DK, BN, STAGES, SPLIT, NWG>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + C::Q_BYTES;            // STAGES x KV_BYTES
+  const uint32_t sV = sK + STAGES * C::KV_BYTES;  // STAGES x KV_BYTES
+  const uint32_t sP = sV + STAGES * C::KV_BYTES;  // SPLIT = 2: 2 P buffers,
+  const uint32_t sAlpha = sP + 2 * 64 * BN * 2;   // 2 x 64 row factors,
+  const uint32_t sL = sAlpha + 2 * 64 * 4;        // 64 row sums
+  const uint32_t bars = sP + C::P_BYTES;
+  const uint32_t q_full = bars;
+  // per stage: K full, V full, K empty, V empty
+  auto bar = [&](int s, int which) { return bars + 8 * (1 + 4 * s + which); };
+  // SPLIT = 2, per P buffer: full (128 arrivals), empty (1)
+  auto pbar = [&](int i, int which) {
+    return bars + 8 * (1 + 4 * STAGES + 2 * i + which);
+  };
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);  // BM x LD
-  uint16_t* Ks = Qs + BM * LD;                            // BN x LD
-  uint16_t* Vs = Ks + BN * LD;                            // BN x LD
-  float* Sx = reinterpret_cast<float*>(Vs + BN * LD);     // WN x BM x BN
-
-  const int nthreads = 128 * WN;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wr = warp & 3;   // row group: queries [16*wr, 16*wr + 16)
-  const int wc = warp >> 2;  // column group: head dims [DW*wc, DW*wc + DW)
-  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BM;
-
-  const uint16_t* qb = q + b * qsb + h * qsh;
-  const uint16_t* kb = k + b * ksb + h * ksh;
-  const uint16_t* vb = v + b * vsb + h * vsh;
-
-  load_rows<DP, LD>(Qs, qb, qss, q0, Sq, BM, D, tid, nthreads);
-
-  float oacc[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i)
-    oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  const uint16_t* qrow0 = Qs + (wr * 16 + g) * LD + wc * DW + 2 * t;
-  const uint16_t* qrow1 = qrow0 + 8 * LD;
-
+  const int q0 = blockIdx.x * C::BM;
   const int n_kt = (Sk + BN - 1) / BN;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();  // previous tile fully consumed (and the Q tile stored)
-    load_rows<DP, LD>(Ks, kb, kss, kt * BN, Sk, BN, D, tid, nthreads);
-    load_rows<DP, LD>(Vs, vb, vss, kt * BN, Sk, BN, D, tid, nthreads);
-    __syncthreads();
+  const int wg = threadIdx.x / 128;
 
-    // scores over this warp's D slice
-    float s[NT_S][4];
-#pragma unroll
-    for (int i = 0; i < NT_S; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS_D; ++ks) {
-      const uint32_t a[4] = {ld_pair(qrow0 + ks * 16), ld_pair(qrow1 + ks * 16),
-                             ld_pair(qrow0 + ks * 16 + 8),
-                             ld_pair(qrow1 + ks * 16 + 8)};
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        const uint16_t* kr = Ks + (nt * 8 + g) * LD + wc * DW + ks * 16 + 2 * t;
-        const uint32_t bb[2] = {ld_pair(kr), ld_pair(kr + 8)};
-        mma_16816(s[nt], a, bb);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar(s, 0), 1);
+      mbar_init(bar(s, 1), 1);
+      // one thread of each consumer warpgroup releases a slot once the
+      // warpgroup's products that read it have completed
+      mbar_init(bar(s, 2), C::K_READERS);
+      mbar_init(bar(s, 3), NWG);
+    }
+    if constexpr (SPLIT == 2) {
+      for (int i = 0; i < 2; ++i) {
+        mbar_init(pbar(i, 0), 128);
+        mbar_init(pbar(i, 1), 1);
       }
     }
-    if constexpr (WN > 1) {
-      // sum the partial scores of the WN column warps of this row group
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        float* p0 = Sx + (wc * BM + wr * 16 + g) * BN + nt * 8 + 2 * t;
-        p0[0] = s[nt][0];
-        p0[1] = s[nt][1];
-        p0[8 * BN] = s[nt][2];
-        p0[8 * BN + 1] = s[nt][3];
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ---- producer ----
+    reg_dealloc<C::PROD>();
+    if (threadIdx.x == 128 * NWG) {
+      mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+      for (int c = 0; c < C::CH; ++c)
+        tma_load_4d(sQ + c * C::BM * 128, &tq, q_full, 64 * c, q0, h, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        const uint32_t ph = (kt / STAGES) & 1;
+        mbar_wait(bar(s, 2), ph ^ 1);
+        mbar_arrive_expect_tx(bar(s, 0), C::KV_BYTES);
+        for (int c = 0; c < C::CH; ++c)
+          tma_load_4d(sK + s * C::KV_BYTES + c * BN * 128, &tk, bar(s, 0),
+                      64 * c, kt * BN, h, b);
+        mbar_wait(bar(s, 3), ph ^ 1);
+        mbar_arrive_expect_tx(bar(s, 1), C::KV_BYTES);
+        for (int c = 0; c < C::CH; ++c)
+          tma_load_4d(sV + s * C::KV_BYTES + c * BN * 128, &tv, bar(s, 1),
+                      64 * c, kt * BN, h, b);
       }
-      __syncthreads();
+    }
+  } else {
+    // ---- consumers ----
+    reg_alloc<C::CONS>();
+    constexpr int RS = BN / 2;     // score accumulator registers
+    constexpr int RO = C::NO / 2;  // output accumulator registers
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, g = (t % 32) / 4, c4 = t % 4;
+    const int row0 = SPLIT == 1 ? 64 * wg : 0;     // rows of the CTA tile
+    const int col0 = SPLIT == 1 ? 0 : C::NO * wg;  // output columns
+
+    float acc_o[RO];
 #pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int i = 0; i < RO; ++i) acc_o[i] = 0.f;
+    float acc_s[RS];  // the first k-step of each S = Q K^T overwrites it
+    uint32_t pa[BN / 16][4];  // P of the previous tile, bf16 A fragments
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float alpha[2];
+
+    // issue S = Q K^T on the K tile of stage s (not waited for)
+    auto issue_qk = [&](int s) {
+      wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < WN; ++c) {
-          const float* p0 = Sx + (c * BM + wr * 16 + g) * BN + nt * 8 + 2 * t;
-          s[nt][0] += p0[0];
-          s[nt][1] += p0[1];
-          s[nt][2] += p0[8 * BN];
-          s[nt][3] += p0[8 * BN + 1];
+      for (int kk = 0; kk < DK / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes
+        const uint64_t da = desc_sw128(
+            sQ + (kk / 4) * C::BM * 128 + row0 * 128 + off, 16, 1024);
+        const uint64_t db = desc_sw128(
+            sK + s * C::KV_BYTES + (kk / 4) * BN * 128 + off, 16, 1024);
+        WgmmaSS<BN>::mma(acc_s, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // issue O += P V on the V tile of stage s (not waited for)
+    auto issue_pv = [&](int s) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint64_t db = desc_sw128(
+            sV + s * C::KV_BYTES + (col0 / 64) * BN * 128 + kk * 2048,
+            BN * 128, 1024);
+        WgmmaRS<C::NO>::mma(acc_o, pa[kk], db);
+      }
+      wgmma_commit();
+    };
+    // online softmax of tile kt in the log2 domain: acc_s becomes P,
+    // alpha the factor for the output so far
+    auto softmax = [&](int kt) {
+      if (kt == n_kt - 1 && Sk % BN != 0) {  // ragged key tail, last tile
+        const int lim = Sk - kt * BN;
+#pragma unroll
+        for (int i = 0; i < RS; ++i) {
+          const int col = (i / 4) * 8 + 2 * c4 + (i & 1);
+          if (col >= lim) acc_s[i] = -INFINITY;
         }
       }
-    }
+      // row max and sum in 8 partials per row, not one long chain
+      float part[2][8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[0][j] = m_run[0], part[1][j] = m_run[1];
+#pragma unroll
+      for (int i = 0; i < RS; ++i) {
+        float& m = part[(i >> 1) & 1][(i & 1) | ((i >> 1) & 6)];
+        m = fmaxf(m, acc_s[i]);
+      }
+      float mx[2], neg_m[2], lsum[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(fmaxf(fmaxf(part[r][0], part[r][1]),
+                            fmaxf(part[r][2], part[r][3])),
+                      fmaxf(fmaxf(part[r][4], part[r][5]),
+                            fmaxf(part[r][6], part[r][7])));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // the first key tile always holds a valid key, so mx is finite
+        alpha[r] = ex2_approx((m_run[r] - mx[r]) * scale_log2e);
+        neg_m[r] = -mx[r] * scale_log2e;
+        m_run[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[0][j] = part[1][j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < RS; ++i) {
+        const int r = (i >> 1) & 1;
+        const float p = ex2_approx(fmaf(acc_s[i], scale_log2e, neg_m[r]));
+        acc_s[i] = p;
+        part[r][(i & 1) | ((i >> 1) & 6)] += p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lsum[r] = ((part[r][0] + part[r][1]) + (part[r][2] + part[r][3])) +
+                  ((part[r][4] + part[r][5]) + (part[r][6] + part[r][7]));
+        l_run[r] = l_run[r] * alpha[r] + lsum[r];
+      }
+    };
+    // P to bf16 A fragments: score n-blocks 2kk and 2kk+1 form k-step kk
+    auto convert_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        pa[kk][0] = pack_f32(acc_s[8 * kk + 0], acc_s[8 * kk + 1]);
+        pa[kk][1] = pack_f32(acc_s[8 * kk + 2], acc_s[8 * kk + 3]);
+        pa[kk][2] = pack_f32(acc_s[8 * kk + 4], acc_s[8 * kk + 5]);
+        pa[kk][3] = pack_f32(acc_s[8 * kk + 6], acc_s[8 * kk + 7]);
+      }
+    };
 
-    // scale into the log2 domain; mask the ragged key tail to -inf
-    float tmax[2] = {-INFINITY, -INFINITY};
+    auto release = [&](uint32_t b) {
+      if (t == 0) mbar_arrive(b);
+    };
+    mbar_wait(q_full, 0);
+    if constexpr (SPLIT == 1) {
+      // Pipelined within the warpgroup: S of tile kt is computed while P V
+      // of tile kt-1 runs, and the exponentials of tile kt overlap that
+      // P V. Across the two warpgroups, named barriers 1 and 2 hand the
+      // turn to issue products back and forth (ping-pong), so one
+      // warpgroup's products run while the other computes exponentials.
+      // Each warpgroup takes n_kt turns; warpgroup 1 hands over once at
+      // the start and not after its last turn, so every barrier phase
+      // completes.
+      auto turn = [&]() { named_bar_sync(1 + wg, 256); };
+      auto hand_over = [&](bool last) {
+        if (wg != NWG - 1 || !last) named_bar_arrive(1 + (wg + 1) % NWG, 256);
+      };
+      if (wg == NWG - 1) named_bar_arrive(1, 256);
+      mbar_wait(bar(0, 0), 0);
+      turn();
+      issue_qk(0);
+      hand_over(n_kt == 1);
+      wgmma_wait<0>();
+      fence_regs(acc_s);
+      release(bar(0, 2));
+      softmax(0);
+      convert_p();
+      for (int kt = 1; kt < n_kt; ++kt) {
+        const int s = kt % STAGES, sp = (kt - 1) % STAGES;
+        mbar_wait(bar(s, 0), (kt / STAGES) & 1);
+        mbar_wait(bar(sp, 1), ((kt - 1) / STAGES) & 1);
+        turn();
+        issue_qk(s);
+        issue_pv(sp);
+        hand_over(kt == n_kt - 1);
+        wgmma_wait<1>();  // S of tile kt is ready; P V of kt-1 may still run
+        fence_regs(acc_s);
+        release(bar(s, 2));
+        softmax(kt);
+        wgmma_wait<0>();
+        fence_regs(acc_o);
+        release(bar(sp, 3));
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
+        for (int i = 0; i < RO; ++i) acc_o[i] *= alpha[(i >> 1) & 1];
+        convert_p();
+      }
+      const int sl = (n_kt - 1) % STAGES;
+      mbar_wait(bar(sl, 1), ((n_kt - 1) / STAGES) & 1);
+      issue_pv(sl);
+      wgmma_wait<0>();
+      fence_regs(acc_o);
+      release(bar(sl, 3));
+    } else {
+      // D = 512 with P shared: warpgroup 0 computes S, the softmax and P,
+      // stores P (bf16, in the 128-byte-swizzled K-major layout wgmma reads)
+      // and the row factors into one of two buffers, and runs P V for its
+      // 256 columns from registers; warpgroup 1 rescales its 256 columns by
+      // the stored factors and runs P V with P from shared memory
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES, pb = kt & 1;
+        const uint32_t ph = (kt / STAGES) & 1, pph = (kt >> 1) & 1;
+        const uint32_t sPb = sP + pb * 64 * BN * 2;
+        if (wg == 0) {
+          mbar_wait(bar(s, 0), ph);
+          issue_qk(s);
+          wgmma_wait<0>();
+          fence_regs(acc_s);
+          release(bar(s, 2));
+          softmax(kt);
+          mbar_wait(pbar(pb, 1), pph ^ 1);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kt * BN + nt * 8 + 2 * t + (e & 1);
-        const float x = col < Sk ? s[nt][e] * scale_log2e : -INFINITY;
-        s[nt][e] = x;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+          for (int i = 0; i < RS; i += 2) {
+            const int row = 16 * warp + g + 8 * ((i >> 1) & 1);
+            const int col = (i / 4) * 8 + 2 * c4;
+            st_shared_u32(sPb + row * 128 +
+                              ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) * 2)),
+                          pack_f32(acc_s[i], acc_s[i + 1]));
+          }
+          if (c4 == 0) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              st_shared_u32(sAlpha + (pb * 64 + 16 * warp + g + 8 * r) * 4,
+                            __float_as_uint(alpha[r]));
+          }
+          fence_proxy_async();
+          mbar_arrive(pbar(pb, 0));
+          convert_p();
+        } else {
+          mbar_wait(pbar(pb, 0), pph);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            alpha[r] =
+                ld_shared_f32(sAlpha + (pb * 64 + 16 * warp + g + 8 * r) * 4);
+        }
+#pragma unroll
+        for (int i = 0; i < RO; ++i) acc_o[i] *= alpha[(i >> 1) & 1];
+        mbar_wait(bar(s, 1), ph);
+        if (wg == 0) {
+          issue_pv(s);
+        } else {
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk) {
+            const uint64_t da = desc_sw128(sPb + kk * 32, 16, 1024);
+            const uint64_t db = desc_sw128(
+                sV + s * C::KV_BYTES + (col0 / 64) * BN * 128 + kk * 2048,
+                BN * 128, 1024);
+            WgmmaSS<C::NO, true>::mma(acc_o, da, db, 1);
+          }
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+        fence_regs(acc_o);
+        release(bar(s, 3));
+        if (wg == 1) release(pbar(pb, 1));
       }
     }
-    float alpha[2], m_new[2];
+
+    // finish: full row sums across the quad, l == 0 -> 1, store valid rows
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-      // the first key tile always holds a valid key, so m_new is finite
-      m_new[r] = fmaxf(m_run[r], tmax[r]);
-      alpha[r] = exp2f(m_run[r] - m_new[r]);
-      m_run[r] = m_new[r];
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = l;
     }
-    float lsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m_new[e >> 1]);
-        s[nt][e] = p;
-        lsum[e >> 1] += p;
+    if constexpr (SPLIT == 2) {  // warpgroup 0 holds the sums of both
+      const uint32_t at = sL + (16 * warp + g) * 4;
+      if (wg == 0 && c4 == 0) {
+        st_shared_u32(at, __float_as_uint(inv[0]));
+        st_shared_u32(at + 32, __float_as_uint(inv[1]));
       }
+      named_bar_sync(1, 256);
+      if (wg == 1) inv[0] = ld_shared_f32(at), inv[1] = ld_shared_f32(at + 32);
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + lsum[r];
+    for (int r = 0; r < 2; ++r) inv[r] = 1.f / (inv[r] == 0.f ? 1.f : inv[r]);
+    uint16_t* ob = o + b * osb + h * osh;
 #pragma unroll
-    for (int i = 0; i < NT_O; ++i) {
-      oacc[i][0] *= alpha[0];
-      oacc[i][1] *= alpha[0];
-      oacc[i][2] *= alpha[1];
-      oacc[i][3] *= alpha[1];
-    }
-
-    // o += p v over this warp's output columns; p's C fragments of two
-    // adjacent key n-tiles are exactly the A fragment of one k-step
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row0 + 16 * warp + g + 8 * r;
+      if (row >= Sq) continue;
+      uint16_t* orow = ob + row * oss;
 #pragma unroll
-    for (int ks = 0; ks < KS_N; ++ks) {
-      const uint32_t a[4] = {pack_f32(s[2 * ks][0], s[2 * ks][1]),
-                             pack_f32(s[2 * ks][2], s[2 * ks][3]),
-                             pack_f32(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                             pack_f32(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-      const uint16_t* v0 = Vs + (ks * 16 + 2 * t) * LD + wc * DW + g;
-#pragma unroll
-      for (int nt = 0; nt < NT_O; ++nt) {
-        const uint16_t* vp = v0 + nt * 8;
-        const uint32_t bb[2] = {join_pair(vp[0], vp[LD]),
-                                join_pair(vp[8 * LD], vp[9 * LD])};
-        mma_16816(oacc[nt], a, bb);
+      for (int j = 0; j < C::NO / 8; ++j) {
+        const int col = col0 + 8 * j + 2 * c4;
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_f32(acc_o[4 * j + 2 * r] * inv[r],
+                       acc_o[4 * j + 2 * r + 1] * inv[r]);
       }
-    }
-  }
-
-  // finish: full row sums across the quad, l == 0 -> 1, store valid rows
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / (l == 0.f ? 1.f : l);
-  }
-  uint16_t* ob = o + b * osb + h * osh;
-  const int r0 = q0 + wr * 16 + g;
-#pragma unroll
-  for (int nt = 0; nt < NT_O; ++nt) {
-    const int col = wc * DW + nt * 8 + 2 * t;
-    if (col < D) {
-      if (r0 < Sq)
-        *reinterpret_cast<uint32_t*>(ob + r0 * oss + col) =
-            pack_f32(oacc[nt][0] * inv[0], oacc[nt][1] * inv[0]);
-      if (r0 + 8 < Sq)
-        *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * oss + col) =
-            pack_f32(oacc[nt][2] * inv[1], oacc[nt][3] * inv[1]);
     }
   }
 }
 
-template <int DP, int WN, int BN>
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// 4-D map (D, S, H, B) over a (B, H, S, D) bf16 view with element strides
+// st = (batch, head, row); boxes of 64 columns x `rows` rows of one head
+static int make_map(CUtensorMap* map, const void* ptr, int B, int H, int S,
+                    int D, const long long* st, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int sizes[3] = {S, H, B};
+  const long long el[3] = {st[2], st[1], st[0]};
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), 0, 0, 0};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = static_cast<cuuint64_t>(sizes[i]);
+    // a dimension of size 1 is never stepped; keep its stride legal
+    const long long e = sizes[i] == 1 && el[i] < 8 ? 8 : el[i];
+    strides[i] = static_cast<cuuint64_t>(e) * 2;
+  }
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
+}
+
+template <int DK, int BN, int STAGES, int SPLIT, int NWG>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
                  int H, int Sq, int Sk, int D, const long long* st,
                  float scale_log2e, cudaStream_t stream) {
-  constexpr int LD = DP + 8;
-  const size_t smem = static_cast<size_t>(kFlashBM + 2 * BN) * LD * 2 +
-                      (WN > 1 ? static_cast<size_t>(WN) * kFlashBM * BN * 4 : 0);
-  auto kern = flash_fwd_kernel<DP, WN, BN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  using C = FlashCfg<DK, BN, STAGES, SPLIT, NWG>;
+  CUtensorMap tq, tk, tv;
+  int rc = make_map(&tq, q, B, H, Sq, D, st, C::BM);
+  if (rc == 0) rc = make_map(&tk, k, B, H, Sk, D, st + 3, BN);
+  if (rc == 0) rc = make_map(&tv, v, B, H, Sk, D, st + 6, BN);
+  if (rc != 0) return rc;
+  auto kern = flash_fwd_kernel<DK, BN, STAGES, SPLIT, NWG>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kFlashBM - 1) / kFlashBM, B * H);
-  kern<<<grid, 128 * WN, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), H, Sq, Sk, D,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], scale_log2e);
+  const dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
+  kern<<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<uint16_t*>(o), H, Sq, Sk, D, st[9], st[10],
+      st[11], scale_log2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -257,7 +522,8 @@ extern "C" int vv_flash_supported(int dp) {
 
 // q/k/v/o: bf16 (B, H, S, D) views with contiguous D; strides holds the
 // (batch, head, row) strides of q, k, v, o in elements (12 values).
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// Launches on `stream`, allocates nothing, returns 0, a CUDA error, or
+// 1000 + the CUresult of a refused tensor map.
 extern "C" int vv_flash_attn_fwd(const void* q, const void* k, const void* v,
                                  void* o, int B, int H, int Sq, int Sk, int D,
                                  const long long* strides, float scale_log2e,
@@ -265,10 +531,10 @@ extern "C" int vv_flash_attn_fwd(const void* q, const void* k, const void* v,
   const int dp = (D + 15) / 16 * 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dp) {
-    case 48:  return vv::launch_flash<48, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 80:  return vv::launch_flash<80, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 160: return vv::launch_flash<160, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 512: return vv::launch_flash<512, 4, 32>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 48:  return vv::launch_flash<48, 128, 2, 1, 3>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 80:  return vv::launch_flash<80, 128, 2, 1, 2>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 160: return vv::launch_flash<160, 64, 2, 1, 2>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 512: return vv::launch_flash<512, 64, 1, 2, 2>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     default:  return static_cast<int>(cudaErrorInvalidValue);
   }
 }

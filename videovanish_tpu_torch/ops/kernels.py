@@ -23,7 +23,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vv_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEADERS = ("mma_bf16.cuh",)
+HEADERS = ("mma_bf16.cuh", "hopper.cuh")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
