@@ -11,7 +11,10 @@
    bf16, against its plain PyTorch version in f32 on the same inputs
    (tolerance max|kernel - plain| <= 1e-2 * max|plain|), and times
    the kernel, the plain version and F.scaled_dot_product_attention (a
-   yardstick only; the port never calls it);
+   yardstick only; the port never calls it). `ms` and `library_ms` are
+   device times (calls replayed from a CUDA graph); `call_ms` and
+   `library_call_ms` time calls issued one after another from Python, host
+   work included;
 4. main path: `run_infill_on_frames` at the full SD1.5 / DiffuEraser width
    with seeded random weights, for two requests of 22 frames with the prior
    passed in: 1280x720 frames (544x960 inference, one temporal window) and
@@ -24,8 +27,11 @@
 
 After the build it prints each kernel's `ptxas` lines (registers, spills,
 warnings) and, where the toolkit has `cuobjdump`, the count of HGMMA (wgmma)
-instructions and the highest register in each flash instantiation's SASS;
-a flash instantiation without HGMMA fails the run.
+instructions and the highest register in each flash instantiation's SASS,
+and the count of TMA loads (UTMALDG), cp.async copies (LDGSTS), ldmatrix
+and mma.sync instructions in each small_seq_attn instantiation's; a flash
+instantiation without HGMMA, or a small_seq_attn one with neither TMA
+loads nor cp.async copies, fails the run.
 
 Any failure raises and exits non-zero.
 """
@@ -75,9 +81,10 @@ def exp2_rate() -> tuple[float, float]:
     return sms * EX2_PER_SM_CLOCK * mhz * 1e6, mhz * 1e6
 
 
-def sass_stats(lib_path) -> dict[str, tuple[int, int]] | None:
-    """(HGMMA instructions, highest register index) per kernel function in
-    the library's SASS (cuobjdump -sass); None without cuobjdump."""
+def sass_stats(lib_path, opcodes=("HGMMA",)) -> dict | None:
+    """({opcode: instructions}, highest register index) per kernel function
+    in the library's SASS (cuobjdump -sass), counting instructions whose
+    mnemonic starts with one of `opcodes`; None without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -88,9 +95,11 @@ def sass_stats(lib_path) -> dict[str, tuple[int, int]] | None:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            stats[fn] = [0, 0]
+            stats[fn] = [dict.fromkeys(opcodes, 0), 0]
         elif fn is not None:
-            stats[fn][0] += "HGMMA" in line
+            op = re.search(r"\*/\s*(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            for name in opcodes:
+                stats[fn][0][name] += bool(op and op.group(1).startswith(name))
             regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
             stats[fn][1] = max([stats[fn][1], *regs])
     return {fn: (n, r) for fn, (n, r) in stats.items()}
@@ -110,10 +119,38 @@ def check_flash_sass(lib_path) -> None:
         args = re.search(r"flash_fwd_kernelI((?:Li\d+E)+)E", fn)
         vals = re.findall(r"Li(\d+)E", args.group(1)) if args else [fn]
         print(f"[sass] flash_fwd_kernel<DK, BN, STAGES, SPLIT, NWG"
-              f" = {', '.join(vals)}>: {n} HGMMA, registers up to R{reg}")
-    missing = [fn for fn, (n, _) in flash.items() if n == 0]
+              f" = {', '.join(vals)}>: {n['HGMMA']} HGMMA, registers up to "
+              f"R{reg}")
+    missing = [fn for fn, (n, _) in flash.items() if n["HGMMA"] == 0]
     if missing:
         raise RuntimeError(f"flash instantiations without HGMMA: {missing}")
+
+
+def check_small_seq_sass(lib_path) -> None:
+    """Print the TMA loads (UTMALDG), cp.async copies (LDGSTS), ldmatrix
+    (LDSM) and mma.sync (HMMA) instructions and the highest register of
+    every small_seq_attn_kernel instantiation; fail if one has neither TMA
+    loads nor cp.async copies."""
+    ops = ("UTMALDG", "LDGSTS", "LDSM", "HMMA")
+    stats = sass_stats(lib_path, ops)
+    if stats is None:
+        print("[sass] cuobjdump not found: TMA count not taken")
+        return
+    small = {fn: st for fn, st in stats.items()
+             if "small_seq_attn_kernel" in fn}
+    if not small:
+        raise RuntimeError("no small_seq_attn_kernel in the library's SASS")
+    for fn, (n, reg) in sorted(small.items()):
+        dp = re.search(r"small_seq_attn_kernelILi(\d+)E", fn)
+        counts = ", ".join(f"{n[o]} {o}" for o in ops)
+        print(f"[sass] small_seq_attn_kernel<DP = "
+              f"{dp.group(1) if dp else fn}>: {counts}, registers up to "
+              f"R{reg}")
+    missing = [fn for fn, (n, _) in small.items()
+               if n["UTMALDG"] + n["LDGSTS"] == 0]
+    if missing:
+        raise RuntimeError(f"small_seq_attn instantiations without TMA or "
+                           f"cp.async copies: {missing}")
 
 
 def time_ms(fn, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
@@ -135,6 +172,38 @@ def time_ms(fn, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, budget_ms: float = 200.0, max_calls: int = 50) -> float:
+    """Mean device time of fn() in ms: a run of calls captured into one CUDA
+    graph and replayed, timed by CUDA events, so the host's work between
+    calls (the Python wrapper, its checks, the launch itself) is not
+    counted. Where a call's host work takes longer than its kernel,
+    time_ms measures the host and this the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # lazy set-up stays out of the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    once = time_ms(fn, min_total_ms=0, max_reps=1)
+    calls = int(max(1, min(max_calls, budget_ms / 4 // once)))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    replays = int(max(2, min(20, budget_ms // (calls * once))))
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def bound(B, H, Sq, Sk, D, ex2_per_s):
@@ -172,20 +241,26 @@ def kernel_cases():
                   flash(22, 8, tokens // 16, tokens // 16, 160),
                   flash(8, 1, tokens, tokens, 512)]
     return cases + [
-        # temporal attention over the 22-frame window, 544x960 inference
-        ("small_seq_attn[tokenmajor,D=40,S=22]", tm, "tokenmajor",
+        # temporal attention over the 22-frame window, 544x960 inference:
+        # levels 0, 1 and 2 (68x120, 34x60, 17x30 latents) and level 3 with
+        # the mid block (9x15)
+        ("small_seq_attn[tokenmajor,N=8160,D=40,S=22]", tm, "tokenmajor",
          (8160, 22, 320, 8)),
-        ("small_seq_attn[tokenmajor,D=80,S=22]", tm, "tokenmajor",
+        ("small_seq_attn[tokenmajor,N=2040,D=80,S=22]", tm, "tokenmajor",
          (2040, 22, 640, 8)),
-        ("small_seq_attn[tokenmajor,D=160,S=22]", tm, "tokenmajor",
+        ("small_seq_attn[tokenmajor,N=510,D=160,S=22]", tm, "tokenmajor",
          (510, 22, 1280, 8)),
+        ("small_seq_attn[tokenmajor,N=135,D=160,S=22]", tm, "tokenmajor",
+         (135, 22, 1280, 8)),
         # 512x512 inference: the mid block's 8x8-token spatial attention,
         # and the temporal attention where J = 5 does not divide N
-        ("small_seq_attn[tokenmajor,D=160,S=64]", tm, "tokenmajor",
+        ("small_seq_attn[tokenmajor,N=22,D=160,S=64]", tm, "tokenmajor",
          (22, 64, 1280, 8)),
-        ("small_seq_attn[bhsd,D=40,S=22]", pk, "packed", (4096, 22, 320, 8)),
-        ("small_seq_attn[bhsd,D=80,S=22]", pk, "packed", (1024, 22, 640, 8)),
-        ("small_seq_attn[bhsd,D=160,S=22]", pk, "packed",
+        ("small_seq_attn[bhsd,N=4096,D=40,S=22]", pk, "packed",
+         (4096, 22, 320, 8)),
+        ("small_seq_attn[bhsd,N=1024,D=80,S=22]", pk, "packed",
+         (1024, 22, 640, 8)),
+        ("small_seq_attn[bhsd,N=256,D=160,S=22]", pk, "packed",
          (256, 22, 1280, 8)),
     ]
 
@@ -264,9 +339,11 @@ def run_kernel_phase(ex2_per_s: float, seed: int = 0):
         err = (got.float() - ref).abs().max().item()
         limit = TOL * ref.abs().max().item()
         del ref
-        ms = time_ms(kern)
+        call_ms = time_ms(kern)
+        library_call_ms = time_ms(lib)
+        ms = device_ms(kern)
+        library_ms = device_ms(lib)
         plain_ms = time_ms(plain, min_total_ms=0, max_reps=2)
-        library_ms = time_ms(lib)
         b_ms, b_by = bound(B, H, Sq, Sk, D, ex2_per_s)
         row = {"name": key, "route": "cuda", "source": src,
                "replaces": replaces,
@@ -274,11 +351,13 @@ def run_kernel_phase(ex2_per_s: float, seed: int = 0):
                "launches": 0, "max_abs_err": err,
                "tolerance": limit, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-               "bound_share": b_ms / ms, "library_ratio": library_ms / ms}
+               "bound_share": b_ms / ms, "library_ratio": library_ms / ms,
+               "call_ms": call_ms, "library_call_ms": library_call_ms}
         print(f"[kernel] {key} err={err:.3e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.3f} sdpa_ms={library_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) bound/ms={b_ms / ms:.3f} "
-              f"sdpa/ms={library_ms / ms:.3f}", flush=True)
+              f"sdpa/ms={library_ms / ms:.3f} call_ms={call_ms:.4f} "
+              f"sdpa_call_ms={library_call_ms:.4f}", flush=True)
         if not math.isfinite(err) or err > limit:
             raise RuntimeError(f"{key}: max|kernel - plain| = {err} exceeds "
                                f"{limit}")
@@ -415,6 +494,7 @@ def main(argv=None) -> int:
                                        "warning")):
                 print(f"[ptxas] {line.strip()}")
     check_flash_sass(built["flash_attn"])
+    check_small_seq_sass(built["small_seq_attn"])
 
     rows = run_kernel_phase(ex2_per_s, args.seed)
     counts, report = run_main_path(args.seed)

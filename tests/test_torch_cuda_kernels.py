@@ -127,6 +127,113 @@ def test_tokenmajor_matches_plain(gen, N, S, heads, d):
     _close(got.view(N, S, heads, d).permute(0, 2, 1, 3), ref)
 
 
+def _small_check(q, k, v):
+    """small_seq_attention on (B, H, S, D) views: one launch, finite, within
+    TOL of the plain version; returns the output."""
+    D = q.shape[-1]
+    n = sum(A.LAUNCHES.values())
+    got = A.small_seq_attention(q, k, v, D ** -0.5)
+    assert sum(A.LAUNCHES.values()) == n + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, A.small_seq_attention_ref(q.float(), k.float(), v.float(),
+                                          D ** -0.5))
+    return got
+
+
+def _split(t, heads):
+    N, S, C = t.shape
+    return t.view(N, S, heads, C // heads).permute(0, 2, 1, 3)
+
+
+# the kernel pads S to 16-row steps: 1, 2, 3 or 4 steps, each edge, with
+# Sq = Sk and with Sk = 65 - Sq
+@pytest.mark.parametrize("Sq", [1, 16, 17, 22, 31, 32, 33, 63, 64])
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("D", [40, 160])
+def test_small_seq_length_edges(gen, Sq, same, D):
+    Sk = Sq if same else 65 - Sq
+    B, H = 6, 3
+    _small_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                 _randn(gen, B, H, Sk, D))
+
+
+# units are one sequence times up to 8 heads; one persistent CTA per SM:
+# sequence counts below the CTA count, a count that leaves the last CTA
+# short, and head counts that do not fill a unit
+@pytest.mark.parametrize("N,heads,d", [
+    (1, 8, 40), (3, 8, 160), (135, 8, 160), (135, 8, 40), (7, 3, 40),
+    (5, 1, 80), (301, 5, 72),
+])
+def test_small_seq_tokenmajor_counts(gen, N, heads, d):
+    S = 22
+    q, k, v = (_randn(gen, N, S, heads * d) for _ in range(3))
+    n = sum(A.LAUNCHES.values())
+    got = A.small_seq_attention_tokenmajor(q, k, v, heads, d ** -0.5)
+    assert sum(A.LAUNCHES.values()) == n + 1
+    ref = A.small_seq_attention_ref(_split(q, heads).float(),
+                                    _split(k, heads).float(),
+                                    _split(v, heads).float(), d ** -0.5)
+    _close(_split(got, heads), ref)
+
+
+@pytest.mark.parametrize("D", [40, 72, 80, 152, 160])
+@pytest.mark.parametrize("S", [22, 64])
+def test_small_seq_last_head_of_token_major_storage(gen, D, S):
+    """q/k/v are head splits of (N, S, H+1, D) storage with the extra head
+    dropped, so the bytes past each head's D (and past the last head) hold
+    other data: the kernel must read none of them, and must write nothing
+    but the output's own heads."""
+    N, H = 37, 4
+
+    def view():
+        return _randn(gen, N, S, H + 1, D)[:, :, :H].permute(0, 2, 1, 3)
+    q, k, v = view(), view(), view()
+    out = torch.full((N, S, H + 1, D), 7.0, device="cuda",
+                     dtype=torch.bfloat16)
+    n = sum(A.LAUNCHES.values())
+    A._small_seq(q, k, v, out[:, :, :H].permute(0, 2, 1, 3), D ** -0.5,
+                 "bhsd")
+    assert sum(A.LAUNCHES.values()) == n + 1
+    _close(out[:, :, :H].permute(0, 2, 1, 3),
+           A.small_seq_attention_ref(q.float(), k.float(), v.float(),
+                                     D ** -0.5))
+    assert bool((out[:, :, H] == 7.0).all())
+
+
+@pytest.mark.parametrize("D", [40, 72, 80, 152, 160])
+@pytest.mark.parametrize("layout", ["contiguous", "head_split"])
+def test_small_seq_head_dims_and_layouts(gen, D, layout):
+    B, H, S = 50, 8, 22
+    if layout == "contiguous":
+        q, k, v = (_randn(gen, B, H, S, D) for _ in range(3))
+    else:
+        q, k, v = (_split(_randn(gen, B, S, H * D), H) for _ in range(3))
+    _small_check(q, k, v)
+
+
+@pytest.mark.parametrize("D", [40, 160])
+@pytest.mark.parametrize("S", [22, 64])
+def test_small_seq_rows_far_below_the_rest(gen, D, S):
+    """Rows whose scores all lie far below those of other rows (and one row
+    far above): the per-row max keeps every exponent near 0."""
+    B, H = 9, 8
+    u = torch.ones(D, device="cuda", dtype=torch.bfloat16)
+    k = _randn(gen, B, H, S, D) + 4 * u
+    q = _randn(gen, B, H, S, D)
+    q[:, :, :5] -= 6 * u
+    q[:, :, 7] += 6 * u
+    _small_check(q, k, _randn(gen, B, H, S, D))
+
+
+@pytest.mark.parametrize("N,S,d", [(2040, 22, 80), (22, 64, 160)])
+def test_small_seq_is_deterministic(gen, N, S, d):
+    heads = 8
+    q, k, v = (_randn(gen, N, S, heads * d) for _ in range(3))
+    a = A.small_seq_attention_tokenmajor(q, k, v, heads, d ** -0.5)
+    b = A.small_seq_attention_tokenmajor(q, k, v, heads, d ** -0.5)
+    assert torch.equal(a, b)
+
+
 def test_kernels_refuse_bad_operands(gen):
     q = _randn(gen, 1, 2, 64, 40)
     with pytest.raises(TypeError):
@@ -139,3 +246,6 @@ def test_kernels_refuse_bad_operands(gen):
     long = _randn(gen, 1, 2, 65, 40)
     with pytest.raises(ValueError):
         A.small_seq_attention(long, long, long, 0.1)  # S above 64
+    wide = _randn(gen, 1, 2, 22, 256)
+    with pytest.raises(ValueError):
+        A.small_seq_attention(wide, wide, wide, 0.1)  # no build for D = 256

@@ -33,7 +33,7 @@ _LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
 
 # kernel launches by instance, e.g. "flash_attn_fwd[D=40,Sq=8160,Sk=77]" or
-# "small_seq_attn[tokenmajor,D=40,S=22]"
+# "small_seq_attn[tokenmajor,N=135,D=160,S=22]" (N: the sequence count)
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -157,13 +157,13 @@ def _small_seq(q, k, v, out, scale, layout):
         raise ValueError(f"small_seq_attn does not take D={D}, Sq={Sq}, "
                          f"Sk={Sk}")
     _launch(lib.vv_small_seq_attn, q, k, v, out, scale)
-    LAUNCHES[f"small_seq_attn[{layout},D={D},S={Sq}]"] += 1
+    LAUNCHES[f"small_seq_attn[{layout},N={q.shape[0]},D={D},S={Sq}]"] += 1
     return out
 
 
 def small_seq_attention(q, k, v, scale):
     """Exact attention for short sequences over (B, H, S, D) input
-    (17 <= S <= 64, Sq != Sk allowed) with the small_seq_attn kernel
+    (S <= 64, Sq != Sk allowed) with the small_seq_attn kernel
     (plain version on the CPU)."""
     if not _on_card(q, k, v):
         return small_seq_attention_ref(q, k, v, scale)

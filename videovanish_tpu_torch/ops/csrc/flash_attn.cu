@@ -433,68 +433,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// so the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// 4-D map (D, S, H, B) over a (B, H, S, D) bf16 view with element strides
-// st = (batch, head, row); boxes of 64 columns x `rows` rows of one head
-static int make_map(CUtensorMap* map, const void* ptr, int B, int H, int S,
-                    int D, const long long* st, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const int sizes[3] = {S, H, B};
-  const long long el[3] = {st[2], st[1], st[0]};
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), 0, 0, 0};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) {
-    dims[i + 1] = static_cast<cuuint64_t>(sizes[i]);
-    // a dimension of size 1 is never stepped; keep its stride legal
-    const long long e = sizes[i] == 1 && el[i] < 8 ? 8 : el[i];
-    strides[i] = static_cast<cuuint64_t>(e) * 2;
-  }
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
-}
-
 template <int DK, int BN, int STAGES, int SPLIT, int NWG>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
                  int H, int Sq, int Sk, int D, const long long* st,
                  float scale_log2e, cudaStream_t stream) {
   using C = FlashCfg<DK, BN, STAGES, SPLIT, NWG>;
+  // boxes of 64 columns x a tile's rows of one head, 128-byte swizzle
+  const cuuint32_t qbox[4] = {64, C::BM, 1, 1}, kvbox[4] = {64, BN, 1, 1};
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, q, B, H, Sq, D, st, C::BM);
-  if (rc == 0) rc = make_map(&tk, k, B, H, Sk, D, st + 3, BN);
-  if (rc == 0) rc = make_map(&tv, v, B, H, Sk, D, st + 6, BN);
+  int rc = make_map(&tq, q, B, H, Sq, D, st, qbox, sw);
+  if (rc == 0) rc = make_map(&tk, k, B, H, Sk, D, st + 3, kvbox, sw);
+  if (rc == 0) rc = make_map(&tv, v, B, H, Sk, D, st + 6, kvbox, sw);
   if (rc != 0) return rc;
   auto kern = flash_fwd_kernel<DK, BN, STAGES, SPLIT, NWG>;
   const cudaError_t err = cudaFuncSetAttribute(

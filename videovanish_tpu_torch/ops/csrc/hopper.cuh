@@ -1,15 +1,17 @@
-// Hopper (sm_90a) building blocks for the flash kernel: mbarriers, TMA tile
-// loads, warpgroup register hand-over, wgmma descriptors and products, and
-// the special-function exponential.
+// Hopper (sm_90a) building blocks for the attention kernels: mbarriers, TMA
+// tile loads, warpgroup register hand-over, wgmma descriptors and products,
+// the special-function exponential, and (host side) the 4-D tensor maps the
+// TMA loads read through.
 //
-// Shared-memory operand tiles are stored the way a TMA load with
-// CU_TENSOR_MAP_SWIZZLE_128B writes them: 64 bf16 (128 bytes) per row, rows
-// consecutive, the 16-byte chunks of row r XOR-ed with r % 8, so eight rows
-// (1024 bytes) form one swizzle atom. A tile wider than 64 columns is kept
-// as several such 64-column boxes one after another. Every tile starts
+// The flash kernel stores its shared-memory operand tiles the way a TMA load
+// with CU_TENSOR_MAP_SWIZZLE_128B writes them: 64 bf16 (128 bytes) per row,
+// rows consecutive, the 16-byte chunks of row r XOR-ed with r % 8, so eight
+// rows (1024 bytes) form one swizzle atom. A tile wider than 64 columns is
+// kept as several such 64-column boxes one after another. Every tile starts
 // 1024-byte aligned, so the swizzle phase follows from the address alone.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,6 +74,14 @@ __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
 __device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
   float v;
   asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr) : "memory");
   return v;
 }
 
@@ -306,5 +316,62 @@ struct WgmmaRS<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
+
+// ---- host: tensor maps ----
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so the libraries need no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// 4-D map (D, S, H, B) over a (B, H, S, D) bf16 view with element strides
+// st = (batch, head, row), boxes of box[0] columns x box[1] rows x box[2]
+// heads x box[3] batch entries. Whatever a box covers outside the view (past
+// D, S, H or B) arrives as zeros and is not read. Returns 0, or 1000 + the
+// CUresult of a refused map.
+static int make_map(CUtensorMap* map, const void* ptr, int B, int H, int S,
+                    int D, const long long* st, const cuuint32_t box[4],
+                    CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int sizes[3] = {S, H, B};
+  const long long el[3] = {st[2], st[1], st[0]};
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), 0, 0, 0};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = static_cast<cuuint64_t>(sizes[i]);
+    // a dimension of size 1 is never stepped; keep its stride legal
+    const long long e = sizes[i] == 1 && el[i] < 8 ? 8 : el[i];
+    strides[i] = static_cast<cuuint64_t>(e) * 2;
+  }
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
+}
 
 }  // namespace vv

@@ -25,44 +25,31 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// two adjacent bf16 (p[0], p[1]) as one register; p must be 4-byte aligned
-__device__ __forceinline__ uint32_t ld_pair(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 from different rows (lo, hi) as one register
-__device__ __forceinline__ uint32_t join_pair(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
 // two f32 rounded to bf16 (round to nearest even) as one register
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy rows [row0, row0 + nrows) of a (rows, D) bf16 matrix with row
-// stride `stride` (elements; columns contiguous) into shared memory with
-// row pitch LD. Rows at or past `valid` and columns at or past D are
-// written as zeros, so nothing out of bounds is read and padded lanes
-// hold exact zeros (never garbage that a multiply could turn into NaN).
-// Requires D % 8 == 0 and 16-byte aligned rows (checked by the wrapper).
-template <int DP, int LD>
-__device__ __forceinline__ void load_rows(uint16_t* dst, const uint16_t* src,
-                                          long long stride, int row0,
-                                          int valid, int nrows, int D,
-                                          int tid, int nthreads) {
-  constexpr int CPR = DP / 8;  // 16-byte chunks per row
-  for (int i = tid; i < nrows * CPR; i += nthreads) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 8;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < valid && c < D) {
-      val = *reinterpret_cast<const uint4*>(src + gr * stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
+// Four 8x8 bf16 matrices from shared memory (ldmatrix): lanes 8i..8i+7 give
+// the row addresses (16-byte aligned, shared-space u32) of matrix i, and
+// r[i] receives this lane's fragment of it: row lane / 4, columns
+// 2 (lane % 4) and the next. With .trans each matrix arrives transposed:
+// rows 2 (lane % 4) and the next, column lane / 4.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+      : "memory");
 }
 
 }  // namespace vv
