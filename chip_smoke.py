@@ -11,10 +11,12 @@
    bf16, against its plain PyTorch version in f32 on the same inputs
    (tolerance max|kernel - plain| <= 1e-2 * max|plain|), and times
    the kernel, the plain version and F.scaled_dot_product_attention (a
-   yardstick only; the port never calls it). `ms` and `library_ms` are
-   device times (calls replayed from a CUDA graph); `call_ms` and
-   `library_call_ms` time calls issued one after another from Python, host
-   work included;
+   yardstick only; the port never calls it). `ms` and `library_ms` time
+   calls issued one after another from Python, host work included (the
+   method of every earlier run); `device_ms` and `library_device_ms` time
+   the same number of calls replayed from a CUDA graph, cycling through
+   copies of the inputs that do not fit in L2 together; each is the mean
+   of two runs in mirrored order (see `timed`);
 4. main path: `run_infill_on_frames` at the full SD1.5 / DiffuEraser width
    with seeded random weights, for two requests of 22 frames with the prior
    passed in: 1280x720 frames (544x960 inference, one temporal window) and
@@ -38,6 +40,7 @@ Any failure raises and exits non-zero.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -174,36 +177,65 @@ def time_ms(fn, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, budget_ms: float = 200.0, max_calls: int = 50) -> float:
-    """Mean device time of fn() in ms: a run of calls captured into one CUDA
-    graph and replayed, timed by CUDA events, so the host's work between
-    calls (the Python wrapper, its checks, the launch itself) is not
-    counted. Where a call's host work takes longer than its kernel,
-    time_ms measures the host and this the card."""
+def device_ms(fns, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
+    """Mean device time of one call in ms: as many calls as time_ms makes
+    (the same count, so that both keep the card busy for as long), cycling
+    through `fns` (one callable per copy of the inputs, or one callable),
+    captured into one CUDA graph and replayed once after a warm-up replay,
+    timed by CUDA events. The host's work between calls (the Python
+    wrapper, its checks, the launch) is not counted: where a call's host
+    work takes longer than its kernel, time_ms measures the host and this
+    the card. Copies that do not fit in L2 together make every call read
+    its inputs from device memory, as the bound assumes."""
     import torch
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # lazy set-up stays out of the capture
-        fn()
+        for fn in fns:
+            fn()
     torch.cuda.current_stream().wait_stream(side)
-    once = time_ms(fn, min_total_ms=0, max_reps=1)
-    calls = int(max(1, min(max_calls, budget_ms / 4 // once)))
+    once = max(time_ms(fns[0], min_total_ms=0, max_reps=1), 1e-3)
+    calls = int(max(1, min(max_reps, min_total_ms // once)))
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(calls):
-            fn()
+        for i in range(calls):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
-    replays = int(max(2, min(20, budget_ms // (calls * once))))
     start, end = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(replays):
-        graph.replay()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     del graph
-    return start.elapsed_time(end) / (calls * replays)
+    return start.elapsed_time(end) / calls
+
+
+def copies_past_l2(bytes_per_call: int, most: int = 16) -> int:
+    """Copies of a call's operands that together hold at least twice the
+    card's L2 cache."""
+    import torch
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0) \
+        or 50 << 20
+    return int(min(most, max(1, math.ceil(2 * l2 / bytes_per_call))))
+
+
+def timed(kern, kerns, lib, libs) -> dict:
+    """The kernel's and the library call's times, each the mean of two
+    runs in mirrored order (call loop, CUDA graph, graph, call loop), so
+    neither method always runs first on a cooler or warmer card: `ms` and
+    `library_ms` by time_ms on one copy of the inputs (host work included,
+    as the rows were timed from the start), `device_ms` and `library_device_ms`
+    by device_ms cycling through the copies."""
+    order = [("ms", time_ms, kern), ("library_ms", time_ms, lib),
+             ("device_ms", device_ms, kerns),
+             ("library_device_ms", device_ms, libs)]
+    runs: dict = {}
+    for name, timer, fn in order + order[::-1]:
+        runs.setdefault(name, []).append(timer(fn))
+    return {name: sum(t) / len(t) for name, t in runs.items()}
 
 
 def bound(B, H, Sq, Sk, D, ex2_per_s):
@@ -265,9 +297,74 @@ def kernel_cases():
     ]
 
 
+def kernel_case(route, shape, randn):
+    """((B, H, Sq, Sk, D), make, kern, view, plain, lib, source) of one
+    kernel_cases() row: make() draws q, k, v with randn as the main path
+    lays them out; kern(q, k, v) calls the port's entry point, view(out)
+    gives its output as (B, H, Sq, D), plain(q, k, v) is the plain version
+    in f32 and lib(q, k, v) F.scaled_dot_product_attention."""
+    import torch.nn.functional as F
+    from videovanish_tpu_torch.ops import attention as A
+
+    def same(out):
+        return out
+    if route == "flash":
+        B, H, Sq, Sk, D = shape
+        scale = D ** -0.5
+
+        def make():
+            # split views of token-major projections, as Attention makes them
+            return [randn(B, S, H, D).permute(0, 2, 1, 3)
+                    for S in (Sq, Sk, Sk)]
+
+        def kern(q, k, v):
+            return A.attention(q, k, v, scale)
+
+        def plain(q, k, v):
+            return A.flash_attention_ref(q.float(), k.float(), v.float(),
+                                         scale)
+
+        def lib(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, scale=scale)
+        assert A.attention_route((B, H, Sq), (B, H, Sk), True) == "flash"
+        return (B, H, Sq, Sk, D), make, kern, same, plain, lib, SRC_FLASH
+    N, S, C, heads = shape
+    d = C // heads
+    scale = d ** -0.5
+
+    def make():
+        return [randn(N, S, C) for _ in range(3)]
+
+    def split(t):
+        return t.view(N, S, heads, d).permute(0, 2, 1, 3)
+    if route == "tokenmajor":
+        assert A.tokenmajor_route((N, S, C), heads, True) == "tokenmajor"
+
+        def kern(q, k, v):
+            return A.attention_tokenmajor(q, k, v, heads, scale)
+        view = split
+    else:
+        # the fallback when J does not divide N: attention() on the
+        # head-split views
+        assert A.attention_route((N, heads, S), (N, heads, S),
+                                 True) == "packed"
+
+        def kern(q, k, v):
+            return A.attention(split(q), split(k), split(v), scale)
+        view = same
+
+    def plain(q, k, v):
+        return A.small_seq_attention_ref(split(q).float(), split(k).float(),
+                                         split(v).float(), scale)
+
+    def lib(q, k, v):
+        return F.scaled_dot_product_attention(split(q), split(k), split(v),
+                                              scale=scale)
+    return (N, heads, S, S, d), make, kern, view, plain, lib, SRC_SMALL
+
+
 def run_kernel_phase(ex2_per_s: float, seed: int = 0):
     import torch
-    import torch.nn.functional as F
     from videovanish_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -278,91 +375,55 @@ def run_kernel_phase(ex2_per_s: float, seed: int = 0):
 
     rows = []
     for key, replaces, route, shape in kernel_cases():
-        if route == "flash":
-            B, H, Sq, Sk, D = shape
-            # split views of token-major projections, as Attention makes them
-            q = randn(B, Sq, H, D).permute(0, 2, 1, 3)
-            k = randn(B, Sk, H, D).permute(0, 2, 1, 3)
-            v = randn(B, Sk, H, D).permute(0, 2, 1, 3)
-            scale = D ** -0.5
-            assert A.attention_route(q.shape, k.shape, True) == "flash"
-
-            def kern():
-                return A.attention(q, k, v, scale)
-
-            def plain():
-                return A.flash_attention_ref(q.float(), k.float(), v.float(),
-                                             scale)
-
-            def lib():
-                return F.scaled_dot_product_attention(q, k, v, scale=scale)
-            src = SRC_FLASH
-        else:
-            N, S, C, heads = shape
-            d = C // heads
-            B, H, Sq, Sk, D = N, heads, S, S, d
-            q, k, v = randn(N, S, C), randn(N, S, C), randn(N, S, C)
-            scale = d ** -0.5
-
-            def split(t):
-                return t.view(N, S, heads, d).permute(0, 2, 1, 3)
-            if route == "tokenmajor":
-                assert A.tokenmajor_route(q.shape, heads, True) == "tokenmajor"
-
-                def kern():
-                    return split(A.attention_tokenmajor(q, k, v, heads, scale))
-            else:
-                # the fallback when J does not divide N: attention() on the
-                # head-split views
-                assert A.attention_route(split(q).shape, split(k).shape,
-                                         True) == "packed"
-
-                def kern():
-                    return A.attention(split(q), split(k), split(v), scale)
-
-            def plain():
-                return A.small_seq_attention_ref(
-                    split(q).float(), split(k).float(), split(v).float(),
-                    scale)
-
-            def lib():
-                return F.scaled_dot_product_attention(
-                    split(q), split(k), split(v), scale=scale)
-            src = SRC_SMALL
-
+        (B, H, Sq, Sk, D), make, kern, view, plain, lib, src = kernel_case(
+            route, shape, randn)
+        # q, k, v and o bytes of one call; copies of the inputs that do not
+        # fit in L2 together, for device_ms
+        b_ms, b_by = bound(B, H, Sq, Sk, D, ex2_per_s)
+        sets = [make() for _ in range(copies_past_l2(
+            2 * B * H * (2 * Sq + 2 * Sk) * D))]
+        q, k, v = sets[0]
         before = A.LAUNCHES[key]
-        got = kern()
+        got = view(kern(q, k, v))
         torch.cuda.synchronize()
         if A.LAUNCHES[key] != before + 1:
             raise RuntimeError(f"{key}: the call did not launch its kernel")
-        ref = plain()
+        ref = plain(q, k, v)
         err = (got.float() - ref).abs().max().item()
         limit = TOL * ref.abs().max().item()
-        del ref
-        call_ms = time_ms(kern)
-        library_call_ms = time_ms(lib)
-        ms = device_ms(kern)
-        library_ms = device_ms(lib)
-        plain_ms = time_ms(plain, min_total_ms=0, max_reps=2)
-        b_ms, b_by = bound(B, H, Sq, Sk, D, ex2_per_s)
+        del ref, got
+        t = timed(lambda: kern(q, k, v),
+                  [functools.partial(kern, *s) for s in sets],
+                  lambda: lib(q, k, v),
+                  [functools.partial(lib, *s) for s in sets])
+        plain_ms = time_ms(lambda: plain(q, k, v), min_total_ms=0, max_reps=2)
         row = {"name": key, "route": "cuda", "source": src,
                "replaces": replaces,
                "shape": {"B": B, "H": H, "Sq": Sq, "Sk": Sk, "D": D},
-               "launches": 0, "max_abs_err": err,
-               "tolerance": limit, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-               "bound_share": b_ms / ms, "library_ratio": library_ms / ms,
-               "call_ms": call_ms, "library_call_ms": library_call_ms}
-        print(f"[kernel] {key} err={err:.3e} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.3f} sdpa_ms={library_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) bound/ms={b_ms / ms:.3f} "
-              f"sdpa/ms={library_ms / ms:.3f} call_ms={call_ms:.4f} "
-              f"sdpa_call_ms={library_call_ms:.4f}", flush=True)
+               "launches": 0, "max_abs_err": err, "tolerance": limit,
+               "ms": t["ms"], "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": t["library_ms"],
+               "bound_share": b_ms / t["ms"],
+               "library_ratio": t["library_ms"] / t["ms"],
+               "device_ms": t["device_ms"],
+               "library_device_ms": t["library_device_ms"],
+               "device_bound_share": b_ms / t["device_ms"],
+               "device_library_ratio": t["library_device_ms"] / t["device_ms"],
+               "input_copies": len(sets)}
+        print(f"[kernel] {key} err={err:.3e} ms={t['ms']:.4f} "
+              f"sdpa_ms={t['library_ms']:.4f} plain_ms={plain_ms:.3f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) bound/ms={row['bound_share']:.3f}"
+              f" sdpa/ms={row['library_ratio']:.3f} | device_ms="
+              f"{t['device_ms']:.4f} sdpa_device_ms="
+              f"{t['library_device_ms']:.4f} bound/device_ms="
+              f"{row['device_bound_share']:.3f} sdpa/device_ms="
+              f"{row['device_library_ratio']:.3f} ({len(sets)} input copies)",
+              flush=True)
         if not math.isfinite(err) or err > limit:
             raise RuntimeError(f"{key}: max|kernel - plain| = {err} exceeds "
                                f"{limit}")
         rows.append(row)
-        del q, k, v, got
+        del q, k, v, sets
         torch.cuda.empty_cache()
     return rows
 

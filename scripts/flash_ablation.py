@@ -1,29 +1,31 @@
 #!/usr/bin/env python3
 """Ablation probe of the flash_attn_fwd kernel on the card.
 
-    python3 scripts/flash_ablation.py [--shapes d40]
+    python3 scripts/flash_ablation.py [--shapes d40] [--variants ...]
+        [--baseline DIR] [--passes 2]
 
 Builds variants of `videovanish_tpu_torch/ops/csrc/flash_attn.cu`, each
 with one part of the per-tile work taken out or changed (the exponentials,
 the bf16 conversion of P, the whole softmax, the P V products, the
 ping-pong hand-over between the consumer warpgroups, the number of
-consumer warpgroups, the key-tile width or the ring depth), and times each beside the unmodified kernel at main-path
-shapes. The variants that drop work compute wrong results: they only show
-what that part costs. Times are CUDA-event means (chip_smoke.time_ms),
-taken in two passes in opposite orders and averaged; the card's name and
-power limit are printed first.
+consumer warpgroups, the key-tile width or the ring depth), and times
+each beside the unmodified kernel at main-path shapes. The variants that
+drop work compute wrong results: they only show what that part costs.
+With `--baseline DIR`, the `flash_attn.cu` in DIR (built against the
+headers in DIR, an earlier version of `ops/csrc/` with the same C
+interface) is timed too, as variant `baseline`. Times are CUDA-event means
+(chip_smoke.time_ms), taken in `--passes` passes, every other one in
+reverse order, and averaged; the card's name and power limit are printed
+first.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import re
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+from kernel_variants import ROOT, build, variant_source
 
 # the dispatch lines of the built instances, as flash_attn.cu has them
 D48 = "launch_flash<48, 128, 2, 1, 3>"
@@ -74,48 +76,15 @@ SHAPES = {
 }
 
 
-def variant_source(edits) -> str:
-    src = (ROOT / "videovanish_tpu_torch/ops/csrc/flash_attn.cu").read_text()
-    for pattern, repl in edits:
-        src, n = re.subn(pattern, repl, src)
-        if n == 0:
-            raise RuntimeError(f"pattern not in flash_attn.cu: {pattern}")
-    return src
-
-
-def build(names) -> dict[str, ctypes.CDLL]:
-    from videovanish_tpu_torch.ops import kernels
-    out = ROOT / "build" / "flash_ablation"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        cu = out / f"{name}.cu"
-        cu.write_text(variant_source(VARIANTS[name]))
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
-               "-o", str(out / f"{name}.so"), str(cu)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    restype, argtypes = kernels.LIBRARIES["flash_attn"][1]["vv_flash_attn_fwd"]
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        for line in log.splitlines():
-            if "spill" in line and not line.strip().startswith("0 bytes"):
-                print(f"[ptxas] {name}: {line.strip()}")
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
-        lib.vv_flash_attn_fwd.restype = restype
-        lib.vv_flash_attn_fwd.argtypes = argtypes
-        libs[name] = lib
-    return libs
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shapes", default="d40", help="comma list of "
                     + ", ".join(SHAPES))
     ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="directory with an earlier flash_attn.cu and its "
+                         "headers")
+    ap.add_argument("--passes", type=int, default=2)
     args = ap.parse_args(argv)
 
     import torch
@@ -126,7 +95,13 @@ def main(argv=None) -> int:
         return 2
     print(f"[card] {card_line()}", flush=True)
     names = args.variants.split(",")
-    libs = build(names)
+    sources = {n: (variant_source("flash_attn.cu", VARIANTS[n]), None)
+               for n in names}
+    if args.baseline is not None:
+        sources["baseline"] = ((args.baseline / "flash_attn.cu").read_text(),
+                               args.baseline)
+        names.append("baseline")
+    libs = build("flash_attn", sources, ROOT / "build" / "flash_ablation")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for key in args.shapes.split(","):
         for B, H, Sq, Sk, D in SHAPES[key]:
@@ -139,17 +114,21 @@ def main(argv=None) -> int:
             def run(name):
                 return lambda: A._launch(libs[name].vv_flash_attn_fwd, q, k,
                                          v, out, scale)
-            run("kernel")()
             ref = A.flash_attention_ref(q[:1].float(), k[:1].float(),
                                         v[:1].float(), scale)
-            err = (out[:1].float() - ref).abs().max().item()
+            errs = []
+            for n in ("kernel", "baseline"):
+                if n in names:
+                    run(n)()
+                    err = (out[:1].float() - ref).abs().max().item()
+                    errs.append(f"{n} {err:.2e}")
             ms = {n: [] for n in names}
-            for order in (names, names[::-1]):
-                for n in order:
+            for p in range(args.passes):
+                for n in (names if p % 2 == 0 else names[::-1]):
                     ms[n].append(time_ms(run(n)))
             row = " ".join(f"{n}={sum(t) / len(t):.4f}" for n, t in ms.items())
             print(f"[ablation] B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
-                  f"(kernel err vs plain on batch 0: {err:.2e}) ms: {row}",
+                  f"(err vs plain on batch 0: {', '.join(errs)}) ms: {row}",
                   flush=True)
             del q, k, v, out
     return 0

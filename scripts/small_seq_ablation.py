@@ -22,15 +22,11 @@ are printed first.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+from kernel_variants import ROOT, build, variant_source
 
 
 def const(name: str, value: int):
@@ -62,48 +58,6 @@ SHAPES = {  # token-major (N, S, C, heads) as the main path gives them
 }
 
 
-def variant_source(edits) -> str:
-    src = (ROOT / "videovanish_tpu_torch/ops/csrc/small_seq_attn.cu").read_text()
-    for pattern, repl in edits:
-        src, n = re.subn(pattern, repl, src)
-        if n == 0:
-            raise RuntimeError(f"pattern not in small_seq_attn.cu: {pattern}")
-    return src
-
-
-def build(names, baseline: Path | None) -> dict[str, ctypes.CDLL]:
-    from videovanish_tpu_torch.ops import kernels
-    out = ROOT / "build" / "small_seq_ablation"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        if name == "baseline":
-            cu, inc = out / "baseline.cu", baseline
-            shutil.copy(baseline / "small_seq_attn.cu", cu)
-        else:
-            cu, inc = out / f"{name}.cu", kernels.CSRC
-            cu.write_text(variant_source(VARIANTS[name]))
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(inc),
-               "-o", str(out / f"{name}.so"), str(cu)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    fns = kernels.LIBRARIES["small_seq_attn"][1]
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        for line in log.splitlines():
-            if "spill" in line and not line.strip().startswith("0 bytes"):
-                print(f"[ptxas] {name}: {line.strip()}")
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
-        for fn, (restype, argtypes) in fns.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        libs[name] = lib
-    return libs
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shapes", default=",".join(SHAPES))
@@ -123,7 +77,13 @@ def main(argv=None) -> int:
     names = args.variants.split(",")
     if args.baseline is not None:
         names.append("baseline")
-    libs = build(names, args.baseline)
+    sources = {n: (variant_source("small_seq_attn.cu", VARIANTS[n]), None)
+               for n in names if n != "baseline"}
+    if args.baseline is not None:
+        sources["baseline"] = (
+            (args.baseline / "small_seq_attn.cu").read_text(), args.baseline)
+    libs = build("small_seq_attn", sources,
+                 ROOT / "build" / "small_seq_ablation")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for key in args.shapes.split(","):
         N, S, C, heads = SHAPES[key]

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
@@ -81,25 +82,42 @@ small_seq_attention_ref = plain_attention
 def _on_card(*ts) -> bool:
     """True when every tensor lies on a CUDA device, False when all lie on
     the CPU; anything else is refused."""
-    kinds = {t.device.type for t in ts}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"}:
+    cuda = sum(t.is_cuda for t in ts)
+    if cuda == len(ts):
         return True
-    raise ValueError(f"attention kernels take CPU or CUDA tensors, got {kinds}")
+    if cuda == 0 and all(t.is_cpu for t in ts):
+        return False
+    raise ValueError(f"attention kernels take CPU or CUDA tensors, got "
+                     f"{sorted({t.device.type for t in ts})}")
 
 
-def _check_operands(q, k, v, out):
-    if not (q.device == k.device == v.device == out.device):
-        raise ValueError("q, k, v must lie on one device")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 on the card, got {t.dtype}")
-        if t.dim() != 4 or t.stride(-1) != 1:
-            raise ValueError(f"{name} must be (B, H, S, D) with contiguous D")
-        if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: strides must be multiples of 8 "
-                             "elements and the data 16-byte aligned")
+# The checks and the launch below run on plain ints and make no views: at
+# the smallest main-path shapes a call's host work is longer than its
+# kernel (PERF.md, the kernel table's call and device times).
+def _operand(t, name: str, heads: int = 0):
+    """(data pointer, sequence, head and row strides) of a kernel operand:
+    a bf16 (B, H, S, D) tensor, or with `heads` the (N, heads, S, d) split
+    of a token-major (N, S, heads*d) one, without making the view. Refuses
+    another dtype, a D that is not contiguous, strides that are not
+    multiples of 8 elements and data that is not 16-byte aligned."""
+    if t.dtype is not torch.bfloat16:
+        raise TypeError(f"{name} must be bfloat16 on the card, got {t.dtype}")
+    st = t.stride()
+    if heads:
+        st = ((st[0], t.shape[2] // heads, st[1], st[2]) if len(st) == 3
+              else ())
+    if len(st) != 4 or st[3] != 1:
+        raise ValueError(f"{name} must be (B, H, S, D) with contiguous D")
+    ptr = t.data_ptr()
+    if st[0] % 8 or st[1] % 8 or st[2] % 8 or ptr % 16:
+        raise ValueError(f"{name}: strides must be multiples of 8 "
+                         "elements and the data 16-byte aligned")
+    return ptr, st[0], st[1], st[2]
+
+
+def _bhsd_dims(q, k, v, out):
+    """(B, H, Sq, Sk, D) of (B, H, S, D) operands, checked against each
+    other."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     if k.shape != (B, H, Sk, D) or v.shape != k.shape:
@@ -107,30 +125,56 @@ def _check_operands(q, k, v, out):
                          f"v{tuple(v.shape)}")
     if out.shape != q.shape:
         raise ValueError("output shape differs from q")
+    return B, H, Sq, Sk, D
+
+
+def _run(fn, ops, dims, scale, *ts) -> None:
+    """Launch `fn` on the current stream of the tensors `ts`' card, with q,
+    k, v and out given as `_operand` tuples and dims (B, H, Sq, Sk, D)."""
+    dev = ts[0].get_device()
+    if any(t.get_device() != dev for t in ts):
+        raise ValueError("q, k, v must lie on one device")
+    B, H, Sq, Sk, D = dims
     if D % 8 or Sq < 1 or Sk < 1:
         raise ValueError(f"head dim must be a multiple of 8, got D={D}")
-
-
-def _launch(fn, q, k, v, out, scale):
-    B, H, Sq, D = q.shape
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, Sq, k.shape[2], D, strides, float(scale) * _LOG2E,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    strides = (ctypes.c_longlong * 12)(*ops[0][1:], *ops[1][1:], *ops[2][1:],
+                                       *ops[3][1:])
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    rc = fn(ops[0][0], ops[1][0], ops[2][0], ops[3][0], B, H, Sq, Sk, D,
+            strides, float(scale) * _LOG2E, stream)
     if rc != 0:  # a cudaError_t, or 1000 + the CUresult of a tensor map
         raise RuntimeError(f"{fn.__name__} failed: error {rc}")
+
+
+def _launch(fn, q, k, v, out, scale) -> None:
+    """Launch `fn` (vv_flash_attn_fwd or vv_small_seq_attn) on bf16
+    (B, H, S, D) q, k, v and out."""
+    ops = [_operand(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"),
+                                       (out, "out"))]
+    _run(fn, ops, _bhsd_dims(q, k, v, out), scale, q, k, v, out)
 
 
 def _bhsd_out(q):
     """(B, H, Sq, D) output view over (B, Sq, H, D) storage."""
     B, H, Sq, D = q.shape
-    return torch.empty((B, Sq, H, D), dtype=q.dtype,
-                       device=q.device).permute(0, 2, 1, 3)
+    return torch.empty_strided((B, H, Sq, D), (Sq * H * D, D, H * D, 1),
+                               dtype=q.dtype, device=q.device)
 
 
 def _padded(d: int) -> int:
     return -(-d // 16) * 16
+
+
+# what each library was built for (its vv_*_supported), asked once a shape
+@functools.lru_cache(maxsize=None)
+def _flash_takes(dp: int) -> bool:
+    return bool(kernels.library("flash_attn").vv_flash_supported(dp))
+
+
+@functools.lru_cache(maxsize=None)
+def _small_seq_takes(dp: int, sq: int, sk: int) -> bool:
+    return bool(kernels.library("small_seq_attn").vv_small_seq_supported(
+        dp, sq, sk))
 
 
 def flash_attention(q, k, v, scale):
@@ -138,26 +182,39 @@ def flash_attention(q, k, v, scale):
     flash_attn_fwd kernel (plain version on the CPU)."""
     if not _on_card(q, k, v):
         return flash_attention_ref(q, k, v, scale)
-    lib = kernels.library("flash_attn")
     D = q.shape[-1]
-    if not lib.vv_flash_supported(_padded(D)):
+    if not _flash_takes(_padded(D)):
         raise ValueError(f"flash_attn_fwd is not built for head dim {D}")
     out = _bhsd_out(q)
-    _check_operands(q, k, v, out)
-    _launch(lib.vv_flash_attn_fwd, q, k, v, out, scale)
+    _launch(kernels.library("flash_attn").vv_flash_attn_fwd, q, k, v, out,
+            scale)
     LAUNCHES[f"flash_attn_fwd[D={D},Sq={q.shape[2]},Sk={k.shape[2]}]"] += 1
     return out
 
 
-def _small_seq(q, k, v, out, scale, layout):
-    lib = kernels.library("small_seq_attn")
-    _check_operands(q, k, v, out)
-    D, Sq, Sk = q.shape[-1], q.shape[2], k.shape[2]
-    if not lib.vv_small_seq_supported(_padded(D), Sq, Sk):
+def _small_seq(q, k, v, out, scale, layout: str, heads: int = 0):
+    """small_seq_attn on bf16 (B, H, S, D) q, k, v and out, or with `heads`
+    on token-major (N, S, heads*d) ones; the launch is counted under
+    `layout`."""
+    ops = [_operand(t, n, heads) for t, n in ((q, "q"), (k, "k"), (v, "v"),
+                                              (out, "out"))]
+    if heads:
+        N, S, C = q.shape
+        if k.shape != q.shape or v.shape != q.shape or out.shape != q.shape \
+                or C % heads:
+            raise ValueError(f"token-major q{tuple(q.shape)} "
+                             f"k{tuple(k.shape)} v{tuple(v.shape)} "
+                             f"out{tuple(out.shape)} with {heads} heads")
+        dims = (N, heads, S, S, C // heads)
+    else:
+        dims = _bhsd_dims(q, k, v, out)
+    B, _, Sq, Sk, D = dims
+    if not _small_seq_takes(_padded(D), Sq, Sk):
         raise ValueError(f"small_seq_attn does not take D={D}, Sq={Sq}, "
                          f"Sk={Sk}")
-    _launch(lib.vv_small_seq_attn, q, k, v, out, scale)
-    LAUNCHES[f"small_seq_attn[{layout},N={q.shape[0]},D={D},S={Sq}]"] += 1
+    _run(kernels.library("small_seq_attn").vv_small_seq_attn, ops, dims,
+         scale, q, k, v, out)
+    LAUNCHES[f"small_seq_attn[{layout},N={B},D={D},S={Sq}]"] += 1
     return out
 
 
@@ -180,17 +237,14 @@ def small_seq_attention_tokenmajor(q, k, v, heads: int, scale):
     """Self-attention over token-major (N, S, C) q/k/v, C = heads*d, with
     the small_seq_attn kernel reading and writing the token-major layout in
     place (plain version on the CPU). Returns (N, S, C)."""
-    N, S, C = q.shape
-
-    def split(t):
-        return _split_heads(t, heads)
-
     if not _on_card(q, k, v):
-        out = small_seq_attention_ref(split(q), split(k), split(v), scale)
+        N, S, C = q.shape
+        out = small_seq_attention_ref(_split_heads(q, heads),
+                                      _split_heads(k, heads),
+                                      _split_heads(v, heads), scale)
         return out.permute(0, 2, 1, 3).reshape(N, S, C)
-    out = torch.empty((N, S, C), dtype=q.dtype, device=q.device)
-    _small_seq(split(q), split(k), split(v), split(out), scale, "tokenmajor")
-    return out
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    return _small_seq(q, k, v, out, scale, "tokenmajor", heads)
 
 
 # ---------------------------------------------------------------------------
