@@ -24,8 +24,20 @@
    the (B, H, S, D) fallback runs). Checks finite latents, the output shape,
    pixels outside the feathered mask equal to the input, and that every
    kernel instance of the path launched;
-5. prints one {"kernels": [...]} line, the card line, and last
-   {"ok": true, "device": {...}}.
+5. the prior computed: a third request of 22 frames at 1280x720 with
+   `propainer_frames=None`, so the port's Propainter (RAFT, flow
+   completion, image propagation, InpaintGenerator, at the published
+   widths) computes the prior at 240x432 before DiffuEraser. Times
+   `compute_prior` alone, then splits a second run of it by stage (a stage
+   hook that synchronizes the card), and times the request. Checks finite
+   flows and prior, the prior equal to the resized input outside the
+   resized mask (uint8), the request's output as above, and that every
+   kernel instance request 0 launched is launched again. Records the bf16
+   prior's drift from the same weights run in f32 (PSNR and max |diff|
+   inside the mask; a record, not a gate);
+6. prints one {"kernels": [...]} line, the card line, and last
+   {"ok": true, "device": {...}}. A kernel row's `launches` counts the two
+   requests with the prior passed in.
 
 After the build it prints each kernel's `ptxas` lines (registers, spills,
 warnings) and, where the toolkit has `cuobjdump`, the count of HGMMA (wgmma)
@@ -450,15 +462,38 @@ def synthetic_request(T, H, W, seed):
     return frames, masks, prior
 
 
+def check_request(out, frames, masks, latents, cfg):
+    """The output's shape, finite latents before decode, and pixels where
+    the feathered alpha is 0 equal to the input; returns (latents, the mean
+    |change| inside)."""
+    import numpy as np
+    import torch
+    from videovanish_tpu_torch.ops.edt import feather_alpha
+    from videovanish_tpu_torch.ops.morphology import binarize_and_dilate
+
+    out = np.stack(out)
+    if out.shape != frames.shape or out.dtype != np.uint8:
+        raise RuntimeError(f"output {out.shape} {out.dtype}, expected "
+                           f"{frames.shape} uint8")
+    if not latents or not all(bool(torch.isfinite(z).all())
+                              for z in latents):
+        raise RuntimeError("non-finite latents before decode")
+    m = binarize_and_dilate(torch.from_numpy(masks[..., None]).cuda(),
+                            cfg.infill.mask_dilation_iter)
+    alpha = feather_alpha(m > 0, float(cfg.infill.feather_px)).cpu().numpy()
+    outside = alpha == 0
+    if not np.array_equal(out[outside], frames[outside]):
+        raise RuntimeError("pixels outside the feathered mask changed")
+    diff = np.abs(out.astype(np.int16) - frames.astype(np.int16))[~outside]
+    return torch.cat(latents), float(diff.mean())
+
+
 def run_main_path(seed: int = 0):
     """Two requests through run_infill_on_frames on the card; returns
-    (launch counts, report)."""
-    import numpy as np
+    (launch counts summed over both, launch counts of request 0, report)."""
     import torch
     from videovanish_tpu_torch.config import default_config
     from videovanish_tpu_torch.ops import attention as A
-    from videovanish_tpu_torch.ops.morphology import binarize_and_dilate
-    from videovanish_tpu_torch.ops.edt import feather_alpha
     from videovanish_tpu_torch.pipeline import infill
 
     cfg = default_config()
@@ -472,11 +507,11 @@ def run_main_path(seed: int = 0):
     latents = []
     model.latent_hook = latents.append
     requests = [(22, 720, 1280), (22, 512, 512)]
-    report = []
-    A.reset_launch_counts()
+    report, per_request = [], []
     for i, (T, H, W) in enumerate(requests):
         frames, masks, prior = synthetic_request(T, H, W, seed + i)
         latents.clear()
+        A.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -486,33 +521,152 @@ def run_main_path(seed: int = 0):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        out = np.stack(out)
-        if out.shape != (T, H, W, 3) or out.dtype != np.uint8:
-            raise RuntimeError(f"output {out.shape} {out.dtype}, expected "
-                               f"({T}, {H}, {W}, 3) uint8")
-        if not latents or not all(bool(torch.isfinite(z).all())
-                                  for z in latents):
-            raise RuntimeError("non-finite latents before decode")
-        z = torch.cat(latents)
-        # pixels where the feathered alpha is 0 must be the input's
-        m = binarize_and_dilate(torch.from_numpy(masks[..., None]).cuda(),
-                                cfg.infill.mask_dilation_iter)
-        alpha = feather_alpha(m > 0, float(cfg.infill.feather_px)).cpu().numpy()
-        outside = alpha == 0
-        if not np.array_equal(out[outside], frames[outside]):
-            raise RuntimeError("pixels outside the feathered mask changed")
-        inside = ~outside
-        diff = np.abs(out.astype(np.int16) - frames.astype(np.int16))[inside]
+        per_request.append(dict(A.LAUNCHES))
+        z, change = check_request(out, frames, masks, latents, cfg)
         h, w = z.shape[-2] * 8, z.shape[-1] * 8
         report.append({"frames": [T, H, W], "inference_hw": [h, w],
                        "seconds": secs, "peak_gib": peak,
                        "latent_absmax": float(z.abs().max()),
-                       "inside_mean_abs_change": float(diff.mean())})
+                       "inside_mean_abs_change": change})
         print(f"[main] request {i}: {T}x{H}x{W} -> {h}x{w} inference, "
               f"{secs:.2f} s, peak {peak:.2f} GiB", flush=True)
-    counts = dict(A.LAUNCHES)
+    counts = {k: sum(c.get(k, 0) for c in per_request)
+              for k in set().union(*per_request)}
     print(f"[main] launches {json.dumps(counts, sort_keys=True)}", flush=True)
-    return counts, report
+    return counts, per_request[0], report
+
+
+PRIOR_STAGES = ("raft", "flow_completion", "propagation", "generator")
+
+
+def prior_stage_split(pp, frames, dilated, pcfg):
+    """One more run of the prior with a stage hook that synchronizes the
+    card: seconds per stage (RAFT includes the upload and the resize to the
+    internal size, the generator the windows' blend), and the names of the
+    stages whose outputs (flows, propagated frames, the float prior) are
+    not finite."""
+    import torch
+    secs = dict.fromkeys(PRIOR_STAGES, 0.0)
+    bad = []
+    mark = [0.0]
+
+    def hook(name, *outputs):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs[name] += now - mark[0]
+        if not all(bool(torch.isfinite(x).all()) for x in outputs):
+            bad.append(name)
+        mark[0] = time.perf_counter()
+
+    pp.stage_hook = hook
+    try:
+        torch.cuda.synchronize()
+        mark[0] = time.perf_counter()
+        pp.forward(frames, dilated, ref_stride=pcfg.ref_stride,
+                   neighbor_length=pcfg.neighbor_length,
+                   subvideo_length=pcfg.subvideo_length, return_device=True)
+    finally:
+        pp.stage_hook = None
+    return secs, bad
+
+
+def run_prior_request(launches_0, seed: int = 0):
+    """Request 2: 22 frames at 1280x720 with the ProPainter prior computed
+    on the card at the published widths; returns (launch counts, report)."""
+    import torch
+    from videovanish_tpu_torch.config import default_config
+    from videovanish_tpu_torch.models.propainter.model import Propainter
+    from videovanish_tpu_torch.ops import attention as A
+    from videovanish_tpu_torch.ops.resize import (
+        host_resize_bilinear_u8, host_resize_nearest_2d, plan_long_side,
+    )
+    from videovanish_tpu_torch.pipeline import infill
+
+    cfg = default_config()
+    pcfg = cfg.propainter
+    T, H, W = 22, 720, 1280
+    frames, masks, _ = synthetic_request(T, H, W, seed + 2)
+    t0 = time.perf_counter()
+    pp = infill.get_propainter("cuda")
+    torch.cuda.synchronize()
+    print(f"[prior] Propainter built on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # compute_prior alone, twice: the first call pays cuDNN's plan search
+    prior_secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dilated, prior = infill.compute_prior(
+            list(frames), list(masks), cfg.infill.mask_dilation_iter,
+            device="cuda")
+        torch.cuda.synchronize()
+        prior_secs.append(time.perf_counter() - t0)
+    h, w = plan_long_side(H, W, pcfg.max_img_size, 8)
+    if tuple(prior.shape) != (T, h, w, 3) or prior.dtype != torch.uint8:
+        raise RuntimeError(f"prior {tuple(prior.shape)} {prior.dtype}, "
+                           f"expected ({T}, {h}, {w}, 3) uint8")
+    hole = host_resize_nearest_2d(dilated, h, w) > 0
+    small = host_resize_bilinear_u8(torch.from_numpy(frames).cuda(), h, w)
+    if not torch.equal(prior[~hole], small[~hole]):
+        raise RuntimeError("the prior differs from the resized input "
+                           "outside the resized mask")
+    split, bad = prior_stage_split(pp, frames, dilated, pcfg)
+    if bad:
+        raise RuntimeError(f"non-finite outputs of the prior's stages {bad}")
+    print(f"[prior] compute_prior {T}x{H}x{W} -> {h}x{w}: "
+          f"{', '.join(f'{t:.3f}' for t in prior_secs)} s; stages (synced) "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()),
+          flush=True)
+
+    model = infill.get_model("2-Step", device="cuda")
+    latents = []
+    model.latent_hook = latents.append
+    A.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = infill.run_infill_on_frames(list(frames), list(masks),
+                                      propainer_frames=None, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = dict(A.LAUNCHES)
+    model.latent_hook = None
+    z, change = check_request(out, frames, masks, latents, cfg)
+    missing = sorted(k for k, n in launches_0.items()
+                     if n and not counts.get(k))
+    if missing:
+        raise RuntimeError(f"kernel instances of request 0 not launched "
+                           f"with the prior computed: {missing}")
+    print(f"[prior] request 2: {T}x{H}x{W}, prior computed, {secs:.2f} s, "
+          f"peak {peak:.2f} GiB", flush=True)
+
+    # bf16 drift: the same weights run in f32
+    pp32 = Propainter(config=pcfg, device="cuda", compute_dtype=torch.float32,
+                      params={n: {k: v.float() for k, v in
+                                  getattr(pp, n).state_dict().items()}
+                              for n in ("raft", "flow_comp", "generator")})
+    prior32 = pp32.forward(frames, dilated, ref_stride=pcfg.ref_stride,
+                           neighbor_length=pcfg.neighbor_length,
+                           subvideo_length=pcfg.subvideo_length,
+                           return_device=True)
+    del pp32
+    d = (prior.float() - prior32.float())[hole]
+    mse = float((d ** 2).mean())
+    psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+    drift = {"psnr_db_inside": psnr, "max_abs_inside": float(d.abs().max())}
+    print(f"[prior] bf16 prior against f32, inside the mask: "
+          f"{psnr:.2f} dB, max |diff| {drift['max_abs_inside']:.0f}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return counts, {"frames": [T, H, W], "prior_hw": [h, w],
+                    "inference_hw": [z.shape[-2] * 8, z.shape[-1] * 8],
+                    "prior_seconds": prior_secs, "prior_stage_seconds": split,
+                    "seconds": secs, "peak_gib": peak,
+                    "latent_absmax": float(z.abs().max()),
+                    "inside_mean_abs_change": change,
+                    "bf16_prior_drift": drift}
 
 
 def main(argv=None) -> int:
@@ -558,13 +712,17 @@ def main(argv=None) -> int:
     check_small_seq_sass(built["small_seq_attn"])
 
     rows = run_kernel_phase(ex2_per_s, args.seed)
-    counts, report = run_main_path(args.seed)
+    counts, launches_0, report = run_main_path(args.seed)
+    counts_2, prior_report = run_prior_request(launches_0, args.seed)
+    report.append(prior_report)
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)
+        row["launches_prior_request"] = counts_2.get(row["name"], 0)
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
-    unchecked = sorted(set(counts) - {r["name"] for r in rows})
+    unchecked = sorted((set(counts) | set(counts_2))
+                       - {r["name"] for r in rows})
     if unchecked:
         raise RuntimeError(f"main-path kernel instances without a "
                            f"kernel-phase check: {unchecked}")

@@ -2,18 +2,20 @@
 """Where the card's time goes in one request of the PyTorch/CUDA port.
 
     python3 scripts/profile_port_infill.py [--frames 22] [--height 720]
-        [--width 1280]
+        [--width 1280] [--computed-prior]
 
 Builds the port's DiffuEraser at the default (full SD1.5) width with seeded
 random weights, runs one `run_infill_on_frames` request with the prior
-passed in (chip_smoke.py's synthetic scene) to warm up, then runs it again
-under torch.profiler. Prints one JSON line: the request's wall time in two
-runs without the profiler and in the profiled run, the summed kernel time
-by kernel class (the port's two attention kernels, convolutions, matmuls,
-normalisation, the rest), and the share of the profiled run's wall time
-the card was busy. The full kernel table goes to
-build/profiles/profile_port_infill_<frames>x<height>x<width>.txt under
-the checkout (git-ignored). Needs a CUDA device.
+passed in (chip_smoke.py's synthetic scene), or with --computed-prior
+without it (the port's Propainter computes the prior at the published
+widths), to warm up, then runs it again under torch.profiler. Prints one
+JSON line: the request's wall time in two runs without the profiler and in
+the profiled run, the summed kernel time by kernel class (the port's two
+attention kernels, convolutions, matmuls, normalisation, gathers, the
+rest), and the share of the profiled run's wall time the card was busy.
+The full kernel table goes to
+build/profiles/profile_port_infill_<frames>x<height>x<width>[_prior].txt
+under the checkout (git-ignored). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ CLASSES = [  # (class, substrings of the kernel name), first match wins
     ("norm", ("group_norm", "GroupNorm", "layer_norm", "LayerNorm",
               "welford", "Welford")),
     ("softmax", ("softmax", "Softmax")),
+    ("gather", ("gather", "index_select", "indexSelect", "index_elementwise",
+                "scatter")),
 ]
 
 
@@ -49,6 +53,8 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=22)
     ap.add_argument("--height", type=int, default=720)
     ap.add_argument("--width", type=int, default=1280)
+    ap.add_argument("--computed-prior", action="store_true",
+                    help="no prior passed in: the Propainter computes it")
     args = ap.parse_args(argv)
 
     import torch
@@ -66,11 +72,11 @@ def main(argv=None) -> int:
     infill.get_model("2-Step", device="cuda")
     frames, masks, prior = synthetic_request(args.frames, args.height,
                                              args.width, 0)
+    prior = None if args.computed_prior else list(prior)
 
     def request():
         infill.run_infill_on_frames(list(frames), list(masks),
-                                    propainer_frames=list(prior),
-                                    device="cuda")
+                                    propainer_frames=prior, device="cuda")
         torch.cuda.synchronize()
 
     request()  # warm-up: kernel builds, cuDNN plans, allocator
@@ -99,7 +105,8 @@ def main(argv=None) -> int:
     busy_ms = sum(by_class.values())
     out_dir = os.path.join(ROOT, "build", "profiles")
     os.makedirs(out_dir, exist_ok=True)
-    name = f"profile_port_infill_{args.frames}x{args.height}x{args.width}.txt"
+    name = (f"profile_port_infill_{args.frames}x{args.height}x{args.width}"
+            f"{'_prior' if args.computed_prior else ''}.txt")
     with open(os.path.join(out_dir, name), "w") as f:
         f.write(f"{card_line()}\n{args.frames}x{args.height}x{args.width}, "
                 f"wall {wall * 1e3:.3f} ms\n")
@@ -108,6 +115,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "card": card_line(),
         "request": [args.frames, args.height, args.width],
+        "prior": "computed" if args.computed_prior else "passed in",
         "wall_ms_unprofiled": [w * 1e3 for w in walls],
         "wall_ms": wall * 1e3,
         "device_busy_ms": busy_ms if busy_ms else "not measured",

@@ -2,9 +2,11 @@
 the CPU at a small geometry (64x64, 8 frames: two windows of 6 overlapping
 by 2, so the window blend runs; a two-level UNet and BrushNet, which have
 every block kind of SD1.5's four levels at half the JAX compile time), with
-the prior passed in and the same weights and noise: uint8-identical where
-the feathered alpha is 0, PSNR above 45 dB where it is not. Plus the window
-plan, the blend ramps, the resizes against cv2, and the missing-prior error.
+the same weights and noise, the prior passed in or computed by each
+package's Propainter (the same weights on both sides; sub-videos of 6
+frames): uint8-identical where the feathered alpha is 0, PSNR above 45 dB
+where it is not. Plus the window plan, the blend ramps, the resizes against
+cv2, and a call without a prior.
 """
 import cv2
 import jax
@@ -14,7 +16,9 @@ import pytest
 import torch
 
 import videovanish_tpu.pipeline.infill as jinfill
+from test_torch_end2end_propainter import PCFG, propainters
 from videovanish_tpu.config import DiffuEraserConfig as JCfg
+from videovanish_tpu.config import ProPainterConfig as JPCfg
 from videovanish_tpu.config import VVConfig as JVV
 from videovanish_tpu.config import tiny_config as j_tiny
 from videovanish_tpu.core.convert import (
@@ -24,7 +28,9 @@ from videovanish_tpu.models.diffueraser import DiffuEraser as JDiffuEraser
 from videovanish_tpu.models.diffueraser.model import (
     make_window_plan as j_plan, window_blend_weights as j_weights,
 )
-from videovanish_tpu_torch.config import DiffuEraserConfig, VVConfig
+from videovanish_tpu_torch.config import (
+    DiffuEraserConfig, ProPainterConfig, VVConfig,
+)
 from videovanish_tpu_torch.models.diffueraser.model import (
     DiffuEraser, make_window_plan, window_blend_weights,
 )
@@ -78,40 +84,57 @@ def shared():
     return params, noise, frames, masks, prior
 
 
+_JAX_MODELS = {}
+
+
+def _jax_diffueraser(params, dcfg):
+    """One JAX DiffuEraser per weights and config in a process: it keeps
+    its compiled programs for every test that reuses it."""
+    key = (id(params), dcfg)
+    if key not in _JAX_MODELS:
+        _JAX_MODELS[key] = JDiffuEraser(config=dcfg, params=params, seed=0)
+    return _JAX_MODELS[key]
+
+
 def _run_jax(params, frames, masks, prior, **flags):
+    """prior None: the JAX Propainter of `propainters()` computes it."""
     dcfg = JCfg(**GEOMETRY, **flags)
-    jinfill.set_config(JVV(diffueraser=dcfg))
-    jinfill.video_inpainting_sd = JDiffuEraser(config=dcfg, params=params,
-                                               seed=0)
+    jinfill.set_config(JVV(diffueraser=dcfg, propainter=JPCfg(**PCFG)))
+    jinfill.video_inpainting_sd = _jax_diffueraser(params, dcfg)
     jinfill.last_ckpt = "2-Step"
-    jinfill.propainter = object()  # the prior is passed in; never called
+    # the prior is passed in (never called), or computed by the shared one
+    jinfill.propainter = object() if prior is not None else propainters()[1]
     try:
         return np.stack(jinfill.run_infill_on_frames(
             list(frames), list(masks), mask_dilation_iter=DILATE,
-            propainer_frames=list(prior), max_img_size=H,
-            feather_px=FEATHER))
+            propainer_frames=None if prior is None else list(prior),
+            max_img_size=H, feather_px=FEATHER))
     finally:
         jinfill.set_config(j_tiny())
 
 
 def _run_port(params, noise, frames, masks, prior, **flags):
     dcfg = DiffuEraserConfig(**GEOMETRY, **flags)
-    pinfill.set_config(VVConfig(diffueraser=dcfg))
+    pinfill.set_config(VVConfig(diffueraser=dcfg,
+                                propainter=ProPainterConfig(**PCFG)))
     pinfill.video_inpainting_sd = DiffuEraser(
         config=dcfg, params=params, device="cpu",
         noise=lambda idx, shape: torch.from_numpy(noise[list(idx)]))
     pinfill.last_ckpt = "2-Step"
+    pinfill.propainter = propainters()[0]
     try:
         return np.stack(pinfill.run_infill_on_frames(
             list(frames), list(masks), mask_dilation_iter=DILATE,
-            propainer_frames=list(prior), max_img_size=H,
-            feather_px=FEATHER, device="cpu"))
+            propainer_frames=None if prior is None else list(prior),
+            max_img_size=H, feather_px=FEATHER, device="cpu"))
     finally:
         pinfill.set_config(VVConfig())
 
 
-def check_pipeline_matches_jax(shared, **flags):
+def check_pipeline_matches_jax(shared, computed_prior=False, **flags):
     params, noise, frames, masks, prior = shared
+    if computed_prior:
+        prior = None
     ref = _run_jax(params, frames, masks, prior, **flags)
     got = _run_port(params, noise, frames, masks, prior, **flags)
     assert got.shape == ref.shape == frames.shape and got.dtype == np.uint8
@@ -132,6 +155,13 @@ def test_pipeline_matches_jax(shared):
     """brushnet_feature_reuse and spatial_attn_reuse at their default (on);
     tests/test_torch_infill_exact.py runs both off."""
     check_pipeline_matches_jax(shared)
+
+
+def test_pipeline_with_computed_prior_matches_jax(shared):
+    """propainer_frames=None: each package computes the ProPainter prior
+    from the dilated masks (two chunks of 6 frames) and goes on into
+    DiffuEraser."""
+    check_pipeline_matches_jax(shared, computed_prior=True)
 
 
 @pytest.mark.parametrize("n,clip,ov", [(12, 6, 2), (22, 22, 6), (5, 22, 6),
@@ -161,7 +191,22 @@ def test_resize_matches_cv2_on_720p_frame():
 
 
 def test_missing_prior_raises():
-    frames = np.zeros((2, 16, 16, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="ProPainter prior"):
-        pinfill.run_infill_on_frames(list(frames), list(frames[..., 0]),
-                                     device="cpu")
+    """A call without a prior no longer raises: the port computes the prior
+    (here with tiny seeded networks) and returns the frames, unchanged
+    outside the feathered mask."""
+    rng = np.random.default_rng(9)
+    frames = rng.integers(0, 256, (3, 32, 48, 3), np.uint8)
+    masks = np.zeros((3, 32, 48), np.uint8)
+    masks[:, 8:16, 12:24] = 255
+    pinfill.set_config(VVConfig(
+        diffueraser=DiffuEraserConfig(**dict(GEOMETRY, max_img_size=48)),
+        propainter=ProPainterConfig(**PCFG)))
+    try:
+        out = pinfill.run_infill_on_frames(list(frames), list(masks),
+                                           mask_dilation_iter=1,
+                                           max_img_size=48, device="cpu")
+    finally:
+        pinfill.set_config(VVConfig())
+    assert len(out) == 3 and out[0].shape == (32, 48, 3)
+    assert out[0].dtype == np.uint8
+    np.testing.assert_array_equal(np.stack(out)[:, :, 32:], frames[:, :, 32:])

@@ -1,12 +1,39 @@
-"""Config tree of the port: the DiffuEraser and infill settings.
+"""Config tree of the port: the ProPainter, DiffuEraser and infill settings.
 
 A copy of the matching dataclasses of videovanish_tpu/config.py with the
 same defaults (the port keeps its own copy and imports nothing of the JAX
-package). Widths are SD1.5's; `tiny_config` is the CPU-runnable smoke size.
+package). Widths are the published ProPainter and SD1.5 ones; `tiny_config`
+is the CPU-runnable smoke size.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class ProPainterConfig:
+    """Flow-guided inpainting prior: RAFT, recurrent flow completion and the
+    InpaintGenerator at the published checkpoints' widths."""
+    checkpoint: str = "checkpoints/propainter.orbax"  # InpaintGenerator
+    raft_checkpoint: str = "checkpoints/raft_things.orbax"
+    flowcomp_checkpoint: str = "checkpoints/recurrent_flow_completion.orbax"
+    ref_stride: int = 10
+    neighbor_length: int = 10
+    subvideo_length: int = 50
+    raft_iters: int = 20  # published inference default
+    # internal processing resolution cap (long side), multiple of 8; the
+    # all-pairs RAFT correlation grows with the square of the tokens
+    max_img_size: int = 432
+    # InpaintGenerator widths (128/512/8 are the published sizes)
+    channels: int = 128
+    hidden: int = 512
+    depths: int = 8
+    num_heads: int = 4
+    window: tuple[int, int] = (5, 9)
+    pool: tuple[int, int] = (4, 4)
+    t_dilation: int = 2
+    ffn_channels: int = 40   # FusionFeedForward hidden = 49 * this
+    flowcomp_base: int = 32  # RecurrentFlowCompleteNet stem width
 
 
 @dataclass(frozen=True)
@@ -54,6 +81,7 @@ class InfillConfig:
 
 @dataclass(frozen=True)
 class VVConfig:
+    propainter: ProPainterConfig = field(default_factory=ProPainterConfig)
     diffueraser: DiffuEraserConfig = field(default_factory=DiffuEraserConfig)
     infill: InfillConfig = field(default_factory=InfillConfig)
 
@@ -74,5 +102,10 @@ def tiny_config() -> VVConfig:
             cross_attention_dim=64,
             attention_head_dim=8,
             vae_block_out_channels=(16, 32, 32, 32),
+        ),
+        propainter=ProPainterConfig(
+            max_img_size=256, raft_iters=2, channels=32, hidden=128,
+            depths=2, ffn_channels=5, flowcomp_base=8,
+            neighbor_length=4, ref_stride=4, subvideo_length=16,
         ),
     )

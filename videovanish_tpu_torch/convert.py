@@ -1,17 +1,20 @@
 """Weights from the JAX package's parameter trees into the port.
 
-The port's modules use the diffusers checkpoint key names and shapes, so a
-published state dict loads with `load_state_dict`. Parameters held as JAX
+The port's modules use the diffusers and ProPainter checkpoint key names
+and shapes, so a published state dict loads with `load_state_dict`. Parameters held as JAX
 (flax) trees -- nested dicts of numpy arrays, as videovanish_tpu's
 `core/convert.convert_state_dict` produces them from those checkpoints --
 come across with `jax_params_to_state_dict`, which inverts that
-conversion: the name rules (VAE_RULES, UNET_RULES, UNET_SPECIALS) and the
-leaf transforms
+conversion: the name rules (VAE_RULES, UNET_RULES, UNET_SPECIALS,
+RAFT_RULES, FLOWCOMP_RULES, PROPAINTER_RULES) and the leaf transforms
 
-  conv kernel   (kh, kw, I, O) -> (O, I, kh, kw)
+  conv kernel   (kh, kw, I, O) -> (O, I, kh, kw), grouped and depthwise
+                                  kernels (kh, kw, I/g, O) alike
+  conv3d kernel (kd, kh, kw, I, O) -> (O, I, kd, kh, kw)
   dense kernel  (I, O)         -> (O, I); (O, I, 1, 1) for the spatial
                                   transformers' proj_in / proj_out
   norm scale                   -> weight
+  running_mean / running_var   -> kept (frozen batch norms)
 
 This module keeps its own copy of those rules: the port imports nothing of
 the JAX package.
@@ -47,8 +50,38 @@ _VAE_NAME_RULES = [
     (r"\.attentions\.0\.attn\.", ".attentions.0."),
     (r"(^|\.)to_out_0\b", r"\1to_out.0"),
 ]
+# ProPainter's three networks: the JAX modules fold a list index into the
+# scope name (layer1_0, conv_offset_2, fc1_0) and hold each propagation
+# direction's modules in a scanned step (step_backward_ ...)
+_RAFT_NAME_RULES = [
+    (r"(^|\.)layer([123])_([01])\b", r"\1layer\2.\3"),
+    (r"\.downsample_conv\b", ".downsample.0"),
+    (r"\.downsample_norm\b", ".downsample.1"),
+    (r"\.mask_([02])\b", r".mask.\1"),
+]
+_PROP_STEP_RULES = [
+    (r"\.step_(\w+?)\.deform_align\.conv_offset_(\d)\b",
+     r".deform_align.\1.conv_offset.\2"),
+    (r"\.step_(\w+?)\.deform_align\b", r".deform_align.\1"),
+    (r"\.step_(\w+?)\.backbone_(\d)\b", r".backbone.\1.\2"),
+]
+_FLOWCOMP_NAME_RULES = _PROP_STEP_RULES + [
+    (r"^(downsample|encoder[12]|mid_dilation|decoder[12]|upsample)_(\d)\b",
+     r"\1.\2"),
+    (r"\.conv([12])_0\b", r".conv\1.0"),
+]
+_GENERATOR_NAME_RULES = _PROP_STEP_RULES + [
+    (r"(^|\.)layers_(\d+)\b", r"\1layers.\2"),
+    (r"^decoder_(\d)\b", r"decoder.\1"),
+    (r"\.fuse_(\d)\b", r".fuse.\1"),
+    (r"\.transformer_(\d+)\b", r".transformer.\1"),
+    (r"\.fc1_0\b", ".fc1.0"),
+    (r"\.fc2_1\b", ".fc2.1"),
+]
 _RULES = {"unet": _UNET_NAME_RULES, "brushnet": _BRUSHNET_NAME_RULES,
-          "vae": _VAE_NAME_RULES}
+          "vae": _VAE_NAME_RULES, "raft": _RAFT_NAME_RULES,
+          "flow_comp": _FLOWCOMP_NAME_RULES,
+          "generator": _GENERATOR_NAME_RULES}
 # dense kernels that are 1x1 convs in the checkpoint (SD1.5's
 # use_linear_projection=False spatial transformers)
 _CONV1X1 = re.compile(r"\.attentions\.\d+\.proj_(in|out)$")
@@ -82,8 +115,9 @@ def _leaves(tree, path=()):
 
 
 def jax_params_to_state_dict(params: dict, model: str) -> dict:
-    """JAX parameter tree (nested dicts of arrays) of the "vae", "unet" or
-    "brushnet" -> the port's state dict {diffusers key: f32 tensor}."""
+    """JAX parameter tree (nested dicts of arrays) of the "vae", "unet",
+    "brushnet", "raft", "flow_comp" or "generator" -> the port's state dict
+    {checkpoint key: f32 tensor}."""
     rules = _RULES[model]
     out = {}
     for path, arr in _leaves(params):
@@ -93,7 +127,9 @@ def jax_params_to_state_dict(params: dict, model: str) -> dict:
             name = re.sub(pat, rep, name)
         a = np.asarray(arr, dtype=np.float32)
         if leaf == "kernel":
-            if a.ndim == 4:
+            if a.ndim == 5:
+                a = a.transpose(4, 3, 0, 1, 2)
+            elif a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)
             elif a.ndim == 2:
                 a = a.T
@@ -104,8 +140,8 @@ def jax_params_to_state_dict(params: dict, model: str) -> dict:
             key = name + ".weight"
         elif leaf == "scale":
             key = name + ".weight"
-        elif leaf == "bias":
-            key = name + ".bias"
+        elif leaf in ("bias", "running_mean", "running_var"):
+            key = f"{name}.{leaf}"
         else:
             raise ValueError(f"unknown leaf {'/'.join(path)}")
         out[key] = torch.tensor(a)

@@ -8,10 +8,14 @@ The JAX package resizes its uploads on the host with cv2; the machine with
 the card has no cv2, so the port's `host_resize_*` run these gathers on
 whatever device the frames lie on. The uint8 bilinear result is within 1 of
 cv2's (cv2 rounds fixed-point weights).
+
+The ProPainter modules' channel-first resizes (torch's own bilinear
+semantics, align_corners True and False) are `F.interpolate` in f32.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def plan_long_side(H: int, W: int, max_long_side: int, multiple_of: int = 8):
@@ -80,3 +84,21 @@ def host_resize_bilinear_u8(frames: torch.Tensor, h: int, w: int) -> torch.Tenso
 def host_resize_nearest_2d(masks: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """INTER_NEAREST resize of (T, H, W) masks, on their device."""
     return resize_nearest_2d(masks, h, w)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
+                                  out_w: int) -> torch.Tensor:
+    """torch bilinear resize with align_corners=True of (N, C, H, W) (the
+    ProPainter decoders' 2x upsample), computed in f32, dtype kept."""
+    y = F.interpolate(x.float(), size=(out_h, out_w), mode="bilinear",
+                      align_corners=True)
+    return y.to(x.dtype)
+
+
+def resize_bilinear_torch_half_pixel(x: torch.Tensor, out_h: int,
+                                     out_w: int) -> torch.Tensor:
+    """torch bilinear resize with half-pixel centres (align_corners=False,
+    edges clamped) of (N, C, H, W), computed in f32, dtype kept."""
+    y = F.interpolate(x.float(), size=(out_h, out_w), mode="bilinear",
+                      align_corners=False)
+    return y.to(x.dtype)

@@ -2,12 +2,12 @@
 videovanish_tpu/pipeline/infill.py).
 
 Same signature and defaults as the JAX package, plus `device`. Every step
-runs on the device: binarize + dilate the masks, DiffuEraser with the
-prior passed in, rescale and feathered composite; only the finished frames
-come back to the host. The ProPainter prior is not ported yet: a call
-without `propainer_frames` raises.
+runs on the device: binarize + dilate the masks, the ProPainter prior
+(unless one is passed in), DiffuEraser, rescale and feathered composite;
+the prior stays on the device at its internal resolution, and only the
+finished frames come back to the host.
 
-The model is a lazy singleton, as in the reference.
+The models are lazy singletons, as in the reference.
 """
 from __future__ import annotations
 
@@ -18,11 +18,13 @@ from videovanish_tpu_torch.config import default_config
 from videovanish_tpu_torch.models.diffueraser.model import (
     DiffuEraser, stack_frames,
 )
+from videovanish_tpu_torch.models.propainter.model import Propainter
 from videovanish_tpu_torch.ops.composite import feathered_composite
 from videovanish_tpu_torch.ops.morphology import binarize_and_dilate
 
-# lazy model singleton
+# lazy model singletons
 video_inpainting_sd = None
+propainter = None
 last_ckpt = None
 _config = None
 
@@ -36,10 +38,11 @@ def _get_config():
 
 def set_config(cfg) -> None:
     """Install a non-default config (tests use tiny_config); drops the
-    model singleton."""
-    global _config, video_inpainting_sd, last_ckpt
+    model singletons."""
+    global _config, video_inpainting_sd, propainter, last_ckpt
     _config = cfg
     video_inpainting_sd = None
+    propainter = None
     last_ckpt = None
 
 
@@ -55,6 +58,27 @@ def get_model(ckpt: str = "2-Step", device="cuda"):
     return video_inpainting_sd
 
 
+def get_propainter(device="cuda"):
+    """The Propainter singleton on `device`, built on first use. No
+    checkpoint is loaded yet: the weights are seeded random."""
+    global propainter
+    if propainter is None or propainter.device != torch.device(device):
+        propainter = Propainter(config=_get_config().propainter,
+                                device=device)
+    return propainter
+
+
+def _prior(frames, dilated, prog, device):
+    """The ProPainter prior of (T, H, W, 3) frames under (T, H, W) dilated
+    masks: (T, h, w, 3) uint8 on the device at its internal resolution."""
+    cfg = _get_config().propainter
+    return get_propainter(device).forward(
+        frames, dilated, ref_stride=cfg.ref_stride,
+        neighbor_length=cfg.neighbor_length,
+        subvideo_length=cfg.subvideo_length, mask_dilation=0,
+        progress=prog, return_device=True)
+
+
 def dilate_masks(mask_frames, mask_dilation_iter: int, device="cuda"):
     """Binarize (any channel > 0) and dilate the mask stack on `device`;
     returns (T, H, W) uint8 in {0, 255}."""
@@ -62,6 +86,21 @@ def dilate_masks(mask_frames, mask_dilation_iter: int, device="cuda"):
     if masks.dim() == 3:
         masks = masks[..., None]
     return binarize_and_dilate(masks, mask_dilation_iter)
+
+
+def compute_prior(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
+                  ckpt: str = "2-Step", prog=None, device="cuda"):
+    """Dilate the masks and run the ProPainter prior, for
+    `run_infill_on_frames`'s `dilated_masks` and `propainer_frames`:
+    returns ((T, H, W) uint8 {0, 255} dilated masks, (T, h, w, 3) uint8
+    prior), both on `device`. `ckpt` is accepted for the reference's
+    signature (the prior does not depend on it)."""
+    prog = prog or (lambda *_a, **_k: None)
+    device = torch.device(device)
+    with torch.inference_mode():
+        frames = stack_frames(frames_rgb, device)
+        dilated = dilate_masks(mask_frames, mask_dilation_iter, device)
+        return dilated, _prior(frames, dilated, prog, device)
 
 
 def run_infill_on_frames(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
@@ -78,8 +117,8 @@ def run_infill_on_frames(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
     frames_rgb: list of (H, W, 3) RGB uint8
     mask_frames: list of (H, W, 3) or (H, W) uint8; any nonzero channel =
         hole
-    propainer_frames: the prior frames (same size as the input); required
-        until the ProPainter prior is ported
+    propainer_frames: optional precomputed prior frames (any resolution);
+        None computes the ProPainter prior
     frame_offset / latent_carry / return_latent_tail: cross-chunk latent
         blending hooks (see DiffuEraser.forward); with return_latent_tail
         > 0 the last n frames are withheld and (frames, carry) returned
@@ -91,8 +130,6 @@ def run_infill_on_frames(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
     device: where everything runs ("cuda" by default; "cpu" on request)
     Returns a list of (H, W, 3) RGB uint8 frames at the input resolution.
     """
-    if propainer_frames is None:
-        raise NotImplementedError("ProPainter prior: not yet ported")
     prog = prog or (lambda *_a, **_k: None)
     device = torch.device(device)
     if preview:
@@ -109,6 +146,9 @@ def run_infill_on_frames(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
 
         prog(10, "loading weights")
         model = get_model(ckpt or "2-Step", device)
+        if propainer_frames is None:
+            prog(20, "running propainter prior")
+            propainer_frames = _prior(frames, dilated, prog, device)
         prog(50, "running DiffuEraser")
         inpainted = model.forward(
             frames, dilated, propainer_frames, max_img_size=max_img_size,
