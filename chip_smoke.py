@@ -35,9 +35,23 @@
    kernel instance request 0 launched is launched again. Records the bf16
    prior's drift from the same weights run in f32 (PSNR and max |diff|
    inside the mask; a record, not a gate);
-6. prints one {"kernels": [...]} line, the card line, and last
+6. SAM2 masking: a fourth request, `run_sam2_on_frames` on 24 frames at
+   1280x720 with the default Sam2Config (Hiera-L at 1024x1024, 7 memory
+   slots, 16 object pointers) and seeded random weights, two objects (a
+   click and a box on frame 0, a negative click on frame 8). Run cold and
+   warm; checks 24 (720, 1280, 3) uint8 outputs whose colors are black or
+   the two objects', a bitwise equal second run, and that every SAM2
+   kernel instance launched; then a third run split by stage (a stage hook
+   that synchronizes the card, and checks the stages' outputs, logits
+   included, finite). Prints the build seconds, cold and warm wall time,
+   frames per second of propagation, the stage split, peak memory, and the
+   bf16 logits' drift from the same weights in f32 (run on the CPU) on the
+   prompt frame (a record, not a gate);
+7. prints one {"kernels": [...]} line, the card line, and last
    {"ok": true, "device": {...}}. A kernel row's `launches` counts the two
-   requests with the prior passed in.
+   requests with the prior passed in and the SAM2 request (each instance
+   is launched by one of them; `launches_prior_request` and
+   `launches_sam2_request` give the two requests apart).
 
 After the build it prints each kernel's `ptxas` lines (registers, spills,
 warnings) and, where the toolkit has `cuobjdump`, the count of HGMMA (wgmma)
@@ -261,11 +275,27 @@ def bound(B, H, Sq, Sk, D, ex2_per_s):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# the kernel instances the SAM2 request launches (8-frame encode chunks and
+# the single-frame encodes of the prompted frames)
+SAM2_INSTANCES = (
+    "flash_attn_fwd[D=72,Sq=256,Sk=256]", "flash_attn_fwd[D=72,Sq=4096,Sk=4096]",
+    "flash_attn_fwd[D=72,Sq=64,Sk=256]", "flash_attn_fwd[D=16,Sq=22,Sk=4096]",
+    "flash_attn_fwd[D=256,Sq=4096,Sk=4096]",
+    "small_seq_attn[tokenmajor,N=8192,D=72,S=64]",
+    "small_seq_attn[tokenmajor,N=1024,D=72,S=64]",
+    "small_seq_attn[tokenmajor,N=128,D=72,S=64]",
+    "small_seq_attn[tokenmajor,N=16,D=72,S=64]",
+    "small_seq_attn[bhsd,N=8192,D=72,S=16]",
+    "small_seq_attn[bhsd,N=1024,D=72,S=16]",
+)
+
+
 def kernel_cases():
     """(counter key, replaced TPU kernel line, route, shape) per kernel
-    instance at the shapes the main path gives it. Flash shapes are
+    instance at the shapes the main paths give it. Flash shapes are
     (B, H, Sq, Sk, D) as split views of (B, S, H*D) projections; small-seq
-    shapes are token-major (N, S, C, heads) or (B, H, S, D)."""
+    shapes are token-major (N, S, C, heads), or for the (B, H, S, D) route
+    (N, Sq, C, heads[, Sk]) split into heads."""
     fl, it, tm, pk = (f"{TPU_SRC}:50", f"{TPU_SRC}:120", f"{TPU_SRC}:337",
                       f"{TPU_SRC}:269")
 
@@ -284,6 +314,14 @@ def kernel_cases():
                   flash(22, 8, tokens // 4, 77, 80),
                   flash(22, 8, tokens // 16, tokens // 16, 160),
                   flash(8, 1, tokens, tokens, 512)]
+    # SAM2 at 1024x1024, Hiera-L in 8-frame encode chunks, 2 objects:
+    # stage-3 windows (16x16 tokens), global blocks, the stage-4 entry's
+    # pooled queries over 16x16 windows; the mask decoder's token-to-image
+    # attention (6 output + 16 prompt tokens, 8 heads of 16); memory
+    # self-attention (one 256-wide head)
+    cases += [flash(128, 8, 256, 256, 72), flash(8, 8, 4096, 4096, 72),
+              flash(128, 16, 64, 256, 72), flash(2, 8, 22, 4096, 16),
+              flash(2, 1, 4096, 4096, 256)]
     return cases + [
         # temporal attention over the 22-frame window, 544x960 inference:
         # levels 0, 1 and 2 (68x120, 34x60, 17x30 latents) and level 3 with
@@ -306,6 +344,22 @@ def kernel_cases():
          (1024, 22, 640, 8)),
         ("small_seq_attn[bhsd,N=256,D=160,S=22]", pk, "packed",
          (256, 22, 1280, 8)),
+        # Hiera-L: stage-1 8x8 windows (C = 144, 2 heads) and stage-4 8x8
+        # windows (C = 1152, 16 heads), for an 8-frame chunk and for the
+        # single-frame encode of a prompted frame (N / J = 8 at stage 4);
+        # the stage-2 entry's pooled 4x4 queries over 8x8 windows
+        ("small_seq_attn[tokenmajor,N=8192,D=72,S=64]", tm, "tokenmajor",
+         (8192, 64, 144, 2)),
+        ("small_seq_attn[tokenmajor,N=1024,D=72,S=64]", tm, "tokenmajor",
+         (1024, 64, 144, 2)),
+        ("small_seq_attn[tokenmajor,N=128,D=72,S=64]", tm, "tokenmajor",
+         (128, 64, 1152, 16)),
+        ("small_seq_attn[tokenmajor,N=16,D=72,S=64]", tm, "tokenmajor",
+         (16, 64, 1152, 16)),
+        ("small_seq_attn[bhsd,N=8192,D=72,S=16]", pk, "packed",
+         (8192, 16, 288, 4, 64)),
+        ("small_seq_attn[bhsd,N=1024,D=72,S=16]", pk, "packed",
+         (1024, 16, 288, 4, 64)),
     ]
 
 
@@ -340,15 +394,16 @@ def kernel_case(route, shape, randn):
             return F.scaled_dot_product_attention(q, k, v, scale=scale)
         assert A.attention_route((B, H, Sq), (B, H, Sk), True) == "flash"
         return (B, H, Sq, Sk, D), make, kern, same, plain, lib, SRC_FLASH
-    N, S, C, heads = shape
+    N, S, C, heads = shape[:4]
+    Sk = shape[4] if len(shape) > 4 else S
     d = C // heads
     scale = d ** -0.5
 
     def make():
-        return [randn(N, S, C) for _ in range(3)]
+        return [randn(N, n, C) for n in (S, Sk, Sk)]
 
     def split(t):
-        return t.view(N, S, heads, d).permute(0, 2, 1, 3)
+        return t.view(N, t.shape[1], heads, d).permute(0, 2, 1, 3)
     if route == "tokenmajor":
         assert A.tokenmajor_route((N, S, C), heads, True) == "tokenmajor"
 
@@ -358,7 +413,7 @@ def kernel_case(route, shape, randn):
     else:
         # the fallback when J does not divide N: attention() on the
         # head-split views
-        assert A.attention_route((N, heads, S), (N, heads, S),
+        assert A.attention_route((N, heads, S), (N, heads, Sk),
                                  True) == "packed"
 
         def kern(q, k, v):
@@ -372,7 +427,7 @@ def kernel_case(route, shape, randn):
     def lib(q, k, v):
         return F.scaled_dot_product_attention(split(q), split(k), split(v),
                                               scale=scale)
-    return (N, heads, S, S, d), make, kern, view, plain, lib, SRC_SMALL
+    return (N, heads, S, Sk, d), make, kern, view, plain, lib, SRC_SMALL
 
 
 def run_kernel_phase(ex2_per_s: float, seed: int = 0):
@@ -669,6 +724,171 @@ def run_prior_request(launches_0, seed: int = 0):
                     "bf16_prior_drift": drift}
 
 
+SAM2_STAGES = ("encode", "decode", "memory_encode")
+
+
+def sam2_annotations(H: int, W: int):
+    """Object 1: a positive click on the moving rectangle of
+    synthetic_request's frame 0 (normalized coordinates) and a negative
+    click on frame 8; object 2: a box on frame 0 (pixel coordinates)."""
+    cx, cy = (W // 6 + W // 16) / W, (H // 3 + H // 8) / H
+    return {"keyframes": [
+        {"frame_idx": 0, "pos_clicks": [{"x": cx, "y": cy, "obj": 1}],
+         "rects": [{"x": int(0.6 * W), "y": int(0.1 * H), "w": W // 5,
+                    "h": H // 4, "obj": 2}]},
+        {"frame_idx": 8, "neg_clicks": [{"x": 0.9, "y": 0.85, "obj": 1}]},
+    ]}
+
+
+def sam2_stage_split(pred, run):
+    """run() once more with a stage hook that synchronizes the card:
+    seconds per stage ("encode": the encoder on a chunk of frames, with the
+    host's I420 conversion and upload; "decode": memory attention and the
+    mask decoder; "memory_encode": the memory encoder; each with the host
+    work since the stage before), the whole call's seconds, and the names
+    of the stages whose outputs were not finite."""
+    import torch
+    secs = dict.fromkeys(SAM2_STAGES, 0.0)
+    bad = set()
+    mark = [0.0]
+
+    def hook(name, *outputs):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs[name] += now - mark[0]
+        if not all(bool(torch.isfinite(x).all()) for x in outputs):
+            bad.add(name)
+        mark[0] = time.perf_counter()
+
+    pred.stage_hook = hook
+    try:
+        torch.cuda.synchronize()
+        t0 = mark[0] = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        pred.stage_hook = None
+    return secs, total, sorted(bad)
+
+
+def run_sam2_request(seed: int = 0):
+    """Request 3: run_sam2_on_frames on 24 frames at 1280x720 with the
+    default Sam2Config (Hiera-L, 1024x1024 input) and seeded random
+    weights, two objects (a click and a box on frame 0, a negative click on
+    frame 8). Runs it twice (cold, warm) and checks the outputs, then once
+    with a stage split, and records the bf16 logits' drift from the same
+    weights in f32 (on the CPU) on the prompt frame. Returns (launch counts
+    of the cold run, report)."""
+    import numpy as np
+    import torch
+    from videovanish_tpu_torch.models.sam2.predictor import (
+        Sam2VideoPredictor,
+    )
+    from videovanish_tpu_torch.ops import attention as A
+    from videovanish_tpu_torch.pipeline import masker
+    from videovanish_tpu_torch.pipeline.colors import color_for_obj
+
+    T, H, W = 24, 720, 1280
+    frames = list(synthetic_request(T, H, W, seed + 3)[0])
+    ann = sam2_annotations(H, W)
+    t0 = time.perf_counter()
+    pred = masker._get_predictor("cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"[sam2] predictor built on the card in {build_s:.1f} s",
+          flush=True)
+
+    runs = []
+    for _ in range(2):
+        marks = {}
+
+        def prog(pct, status="", **_):
+            marks[pct] = time.perf_counter()
+        A.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = masker.run_sam2_on_frames(frames, ann, device="cuda", prog=prog)
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t0, "out": out,
+                     "launches": dict(A.LAUNCHES),
+                     "propagation_s": marks[80] - marks[45],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    out = runs[0]["out"]
+    palette = {(0, 0, 0), color_for_obj(1), color_for_obj(2)}
+    if len(out) != T or any(o.shape != (H, W, 3) or o.dtype != np.uint8
+                            for o in out):
+        raise RuntimeError("run_sam2_on_frames: expected 24 (720, 1280, 3) "
+                           "uint8 frames")
+    packed = {(c >> 16, (c >> 8) & 255, c & 255) for o in out
+              for c in np.unique((o[..., 0].astype(np.int32) << 16)
+                                 | (o[..., 1].astype(np.int32) << 8)
+                                 | o[..., 2])}
+    colors = {tuple(int(v) for v in c) for c in packed}
+    if not colors <= palette:
+        raise RuntimeError(f"mask colors outside black and the two objects' "
+                           f"colors: {sorted(colors - palette)}")
+    if not all(np.array_equal(a, b) for a, b in zip(out, runs[1]["out"])):
+        raise RuntimeError("a second run of the request differs from the "
+                           "first")
+    if runs[0]["launches"] != runs[1]["launches"]:
+        raise RuntimeError("the two runs launched different kernels")
+    cover = {obj: float(np.mean([(o == color_for_obj(obj)).all(-1).mean()
+                                 for o in out])) for obj in (1, 2)}
+
+    split, split_total, bad = sam2_stage_split(
+        pred, lambda: masker.run_sam2_on_frames(frames, ann, device="cuda"))
+    if bad:
+        raise RuntimeError(f"non-finite outputs of the SAM2 stages {bad}")
+    warm = runs[1]
+    print(f"[sam2] request 3: {T}x{H}x{W}, 2 objects: cold "
+          f"{runs[0]['seconds']:.3f} s, warm {warm['seconds']:.3f} s, "
+          f"propagation {T / warm['propagation_s']:.2f} frames/s, peak "
+          f"{warm['peak_gib']:.2f} GiB; mask cover obj 1 {cover[1]:.4f}, "
+          f"obj 2 {cover[2]:.4f}", flush=True)
+    print(f"[sam2] stages (synced, {split_total:.3f} s in all): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()),
+          flush=True)
+
+    # bf16 drift: the prompt frame's logits against the same (bf16-rounded)
+    # weights in f32 on the CPU
+    clicks = ann["keyframes"][0]
+    pt = np.array([[clicks["pos_clicks"][0]["x"] * W,
+                    clicks["pos_clicks"][0]["y"] * H]], np.float32)
+    r = clicks["rects"][0]
+    box = np.array([r["x"], r["y"], r["x"] + r["w"], r["y"] + r["h"]],
+                   np.float32)
+
+    def prompt_logits(p):
+        state = p.init_state(video_path=frames)
+        p.add_new_points_or_box(state, 0, 1, points=pt,
+                                labels=np.array([1], np.int32))
+        return p.add_new_points_or_box(state, 0, 2, box=box)[2]
+    got = prompt_logits(pred)
+    t0 = time.perf_counter()
+    cpu = Sam2VideoPredictor(pred.cfg, device="cpu", params={
+        k: v.float().cpu() for k, v in pred.model.state_dict().items()})
+    ref = prompt_logits(cpu)
+    del cpu
+    top = float(np.abs(ref).max())
+    sure = np.abs(ref) > 1e-3 * top
+    drift = {"max_abs": float(np.abs(got - ref).max()), "max_abs_f32": top,
+             "sign_agreement": float(((got > 0) == (ref > 0))[sure].mean()),
+             "cpu_f32_seconds": time.perf_counter() - t0}
+    print(f"[sam2] bf16 logits against f32 on the prompt frame: max |diff| "
+          f"{drift['max_abs']:.4g} of max |f32| {top:.4g}, sign agreement "
+          f"{drift['sign_agreement']:.5f} where |f32| > 1e-3 max", flush=True)
+    torch.cuda.empty_cache()
+    return runs[0]["launches"], {
+        "frames": [T, H, W], "objects": 2, "build_seconds": build_s,
+        "seconds_cold": runs[0]["seconds"], "seconds": warm["seconds"],
+        "propagation_fps": T / warm["propagation_s"],
+        "stage_seconds": split, "stage_split_total_seconds": split_total,
+        "peak_gib": warm["peak_gib"], "mask_cover": cover,
+        "bf16_logit_drift": drift}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -715,13 +935,23 @@ def main(argv=None) -> int:
     counts, launches_0, report = run_main_path(args.seed)
     counts_2, prior_report = run_prior_request(launches_0, args.seed)
     report.append(prior_report)
+    counts_3, sam2_report = run_sam2_request(args.seed)
+    report.append(sam2_report)
     for row in rows:
-        row["launches"] = counts.get(row["name"], 0)
+        # each instance is driven by the infill requests or by SAM2
+        row["launches"] = counts.get(row["name"], 0) + \
+            counts_3.get(row["name"], 0)
         row["launches_prior_request"] = counts_2.get(row["name"], 0)
+        row["launches_sam2_request"] = counts_3.get(row["name"], 0)
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
-    unchecked = sorted((set(counts) | set(counts_2))
+    sam2_missing = [r["name"] for r in rows if r["name"] in SAM2_INSTANCES
+                    and not counts_3.get(r["name"])]
+    if sam2_missing:
+        raise RuntimeError(f"SAM2 kernel instances not launched by the SAM2 "
+                           f"request: {sam2_missing}")
+    unchecked = sorted((set(counts) | set(counts_2) | set(counts_3))
                        - {r["name"] for r in rows})
     if unchecked:
         raise RuntimeError(f"main-path kernel instances without a "

@@ -35,7 +35,7 @@ CLASSES = [  # (class, substrings of the kernel name), first match wins
     ("matmul", ("gemm", "cutlass", "nvjet", "cublas", "xmma")),
     ("norm", ("group_norm", "GroupNorm", "layer_norm", "LayerNorm",
               "welford", "Welford")),
-    ("softmax", ("softmax", "Softmax")),
+    ("softmax", ("softmax", "Softmax", "SoftMax")),
     ("gather", ("gather", "index_select", "indexSelect", "index_elementwise",
                 "scatter")),
 ]

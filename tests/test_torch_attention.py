@@ -36,6 +36,8 @@ def _t(*xs):
 @pytest.mark.parametrize("shape,blocks", [
     ((2, 3, 100, 150, 24), (32, 128)),   # ragged q and KV blocks
     ((1, 2, 600, 77, 40), (256, 128)),   # long query, short KV (UNet attn2)
+    ((2, 2, 64, 256, 72), (64, 128)),    # Hiera stage-4 entry (q-pool)
+    ((2, 2, 22, 300, 16), (32, 128)),    # SAM2 decoder token -> image
 ])
 def test_flash_plain_matches_pallas_interpret(shape, blocks):
     B, H, Sq, Sk, D = shape
@@ -59,6 +61,7 @@ def test_flash_plain_matches_pallas_interpret(shape, blocks):
 @pytest.mark.parametrize("shape", [
     (40, 2, 22, 22, 12),
     (64, 3, 17, 30, 16),   # Sq != Sk
+    (32, 4, 16, 64, 72),   # Hiera stage-2 entry: pooled q over a window
 ])
 def test_small_seq_plain_matches_packed_interpret(shape):
     B, H, Sq, Sk, D = shape
@@ -74,7 +77,8 @@ def test_small_seq_plain_matches_packed_interpret(shape):
         P.small_seq_attention(tq, tk, tv, scale).numpy(), ref, atol=ATOL)
 
 
-@pytest.mark.parametrize("N,S,heads,d", [(40, 22, 4, 16), (10, 64, 2, 8)])
+@pytest.mark.parametrize("N,S,heads,d", [(40, 22, 4, 16), (10, 64, 2, 8),
+                                         (16, 64, 2, 72)])
 def test_tokenmajor_plain_matches_interpret(N, S, heads, d):
     C = heads * d
     q, k, v = _inputs(2, (N, S, C), (N, S, C))
@@ -88,6 +92,35 @@ def test_tokenmajor_plain_matches_interpret(N, S, heads, d):
         ref, atol=ATOL)
     np.testing.assert_allclose(
         P.attention_tokenmajor(tq, tk, tv, heads).numpy(), ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_plain_matches_xla_attention_d256(masked):
+    """SAM2 memory attention (one 256-wide head; the iota kernel has no
+    interpret path): self-attention unmasked, cross-attention to memory
+    slots of which some are invalid and, for the second object, all. A
+    bank with no valid key gives the uniform softmax of the -1e30 fill,
+    finite, as in the JAX package."""
+    q, k, v = _inputs(4, (2, 1, 64, 256), (2, 1, 200, 256))
+    key_mask = None
+    if masked:
+        key_mask = np.random.default_rng(5).random((2, 200)) > 0.4
+        key_mask[1] = False
+    scale = 256 ** -0.5
+    ref = np.asarray(J._xla_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, False,
+        None if key_mask is None else jnp.asarray(key_mask)))
+    tq, tk, tv = _t(q, k, v)
+    tm = None if key_mask is None else torch.from_numpy(key_mask)
+    got = P.attention(tq, tk, tv, key_mask=tm).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+    if masked:
+        np.testing.assert_allclose(got[1, 0], np.broadcast_to(
+            v[1, 0].mean(0), (64, 256)), atol=ATOL)
+    else:
+        np.testing.assert_allclose(
+            P.flash_attention(tq, tk, tv, scale).numpy(), ref, atol=ATOL)
 
 
 @pytest.mark.parametrize("causal,masked", [(False, False), (True, False),
@@ -179,6 +212,18 @@ ATTN_SHAPES = [  # (B, H, Sq, Sk, D), causal, masked
     ((6, 2, 22, 22, 8), False, False),         # short, small batch
     ((1024, 1, 256, 256, 72), False, False),   # Hiera windows
     ((1024, 4, 16, 16, 72), False, False),     # S below the packed range
+    # SAM2 at 1024x1024, 8-frame encode chunks and 2 objects
+    ((8192, 4, 16, 64, 72), False, False),     # Hiera stage-2 entry
+    ((1024, 4, 16, 64, 72), False, False),     # the same, one frame
+    ((8192, 8, 4, 16, 72), False, False),      # Hiera stage-3 entry
+    ((128, 8, 256, 256, 72), False, False),    # Hiera stage-3 windows
+    ((8, 8, 4096, 4096, 72), False, False),    # Hiera global blocks
+    ((128, 16, 64, 256, 72), False, False),    # Hiera stage-4 entry
+    ((2, 1, 4096, 4096, 256), False, False),   # memory self-attention
+    ((2, 1, 4096, 28736, 256), False, True),   # memory cross-attention
+    ((2, 8, 22, 4096, 16), False, False),      # decoder token -> image
+    ((2, 8, 4096, 22, 16), False, True),       # decoder image -> token
+    ((2, 8, 22, 22, 32), False, True),         # decoder token self-attn
     ((2, 8, 600, 600, 40), True, False),       # causal
     ((2, 8, 600, 600, 40), False, True),       # key mask
 ]
@@ -205,6 +250,15 @@ TM_SHAPES = [  # (N, S, C, heads)
     (22, 64, 1280, 8),     # mid-block spatial attention at 512x512
     (8, 4096, 32, 1),      # VAE mid block (long S)
     (64, 16, 64, 4),       # S below the packed range
+    # Hiera at 1024x1024
+    (8192, 64, 144, 2),    # stage 1, 8-frame chunk
+    (1024, 64, 144, 2),    # stage 1, one frame
+    (8192, 16, 288, 4),    # stage 2 (S = 16: plain)
+    (128, 256, 576, 8),    # stage 3 windows (flash)
+    (8, 4096, 576, 8),     # stage 3 global blocks (flash)
+    (128, 64, 1152, 16),   # stage 4, 8-frame chunk
+    (16, 64, 1152, 16),    # stage 4, one frame: N / J = 8, the edge
+    (14, 64, 1152, 16),    # N / J = 7, just below it
 ]
 
 

@@ -33,6 +33,19 @@ def _close(got, ref):
     assert err <= TOL * ref.abs().max().item(), err
 
 
+def _each(cases, check):
+    """check(*case) for every case; fails naming each case that failed.
+    Edge cases of one kernel instance run as one test: the count of
+    collected tests sets how pytest-xdist splits the suite among workers."""
+    bad = []
+    for case in cases:
+        try:
+            check(*case)
+        except AssertionError as e:
+            bad.append(f"{case}: {e}")
+    assert not bad, "\n".join(bad)
+
+
 @pytest.mark.parametrize("B,H,Sq,Sk,D", [
     (2, 3, 100, 150, 40), (1, 2, 600, 77, 40), (3, 2, 65, 64, 72),
     (2, 1, 1000, 1, 80), (1, 4, 17, 333, 152), (2, 2, 130, 200, 160),
@@ -61,20 +74,22 @@ def _flash_check(q, k, v):
 # the flash kernel's tile edges: 64 query rows per consumer warpgroup, 192
 # per CTA at D = 40, 128 at D = 80/160, 64 at D = 512; key tiles of 128
 # (D <= 80) or 64 (D = 160, 512)
-@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 127, 128, 129, 191, 192, 193])
 @pytest.mark.parametrize("D", [40, 160, 512])
-def test_flash_query_tile_edges(gen, Sq, D):
+def test_flash_query_tile_edges(gen, D):
     B, H, Sk = (2, 3, 90) if D < 512 else (1, 1, 90)
-    _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
-                 _randn(gen, B, H, Sk, D))
+    _each([(Sq,) for Sq in (1, 63, 64, 65, 127, 128, 129, 191, 192, 193)],
+          lambda Sq: _flash_check(_randn(gen, B, H, Sq, D),
+                                  _randn(gen, B, H, Sk, D),
+                                  _randn(gen, B, H, Sk, D)))
 
 
-@pytest.mark.parametrize("Sk", [1, 2, 63, 64, 65, 100, 127, 128, 129, 257])
 @pytest.mark.parametrize("D", [40, 80, 512])
-def test_flash_key_tile_edges(gen, Sk, D):
+def test_flash_key_tile_edges(gen, D):
     B, H, Sq = (1, 2, 150) if D < 512 else (1, 1, 70)
-    _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
-                 _randn(gen, B, H, Sk, D))
+    _each([(Sk,) for Sk in (1, 2, 63, 64, 65, 100, 127, 128, 129, 257)],
+          lambda Sk: _flash_check(_randn(gen, B, H, Sq, D),
+                                  _randn(gen, B, H, Sk, D),
+                                  _randn(gen, B, H, Sk, D)))
 
 
 @pytest.mark.parametrize("D", [40, 72, 80, 152, 160, 504, 512])
@@ -147,14 +162,14 @@ def _split(t, heads):
 
 # the kernel pads S to 16-row steps: 1, 2, 3 or 4 steps, each edge, with
 # Sq = Sk and with Sk = 65 - Sq
-@pytest.mark.parametrize("Sq", [1, 16, 17, 22, 31, 32, 33, 63, 64])
-@pytest.mark.parametrize("same", [True, False])
 @pytest.mark.parametrize("D", [40, 160])
-def test_small_seq_length_edges(gen, Sq, same, D):
-    Sk = Sq if same else 65 - Sq
+def test_small_seq_length_edges(gen, D):
     B, H = 6, 3
-    _small_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
-                 _randn(gen, B, H, Sk, D))
+    _each([(Sq, Sk) for Sq in (1, 16, 17, 22, 31, 32, 33, 63, 64)
+           for Sk in (Sq, 65 - Sq)],
+          lambda Sq, Sk: _small_check(_randn(gen, B, H, Sq, D),
+                                      _randn(gen, B, H, Sk, D),
+                                      _randn(gen, B, H, Sk, D)))
 
 
 # units are one sequence times up to 8 heads; one persistent CTA per SM:
@@ -176,39 +191,42 @@ def test_small_seq_tokenmajor_counts(gen, N, heads, d):
     _close(_split(got, heads), ref)
 
 
-@pytest.mark.parametrize("D", [40, 72, 80, 152, 160])
 @pytest.mark.parametrize("S", [22, 64])
-def test_small_seq_last_head_of_token_major_storage(gen, D, S):
+def test_small_seq_last_head_of_token_major_storage(gen, S):
     """q/k/v are head splits of (N, S, H+1, D) storage with the extra head
     dropped, so the bytes past each head's D (and past the last head) hold
     other data: the kernel must read none of them, and must write nothing
     but the output's own heads."""
     N, H = 37, 4
 
-    def view():
-        return _randn(gen, N, S, H + 1, D)[:, :, :H].permute(0, 2, 1, 3)
-    q, k, v = view(), view(), view()
-    out = torch.full((N, S, H + 1, D), 7.0, device="cuda",
-                     dtype=torch.bfloat16)
-    n = sum(A.LAUNCHES.values())
-    A._small_seq(q, k, v, out[:, :, :H].permute(0, 2, 1, 3), D ** -0.5,
-                 "bhsd")
-    assert sum(A.LAUNCHES.values()) == n + 1
-    _close(out[:, :, :H].permute(0, 2, 1, 3),
-           A.small_seq_attention_ref(q.float(), k.float(), v.float(),
-                                     D ** -0.5))
-    assert bool((out[:, :, H] == 7.0).all())
+    def check(D):
+        def view():
+            return _randn(gen, N, S, H + 1, D)[:, :, :H].permute(0, 2, 1, 3)
+        q, k, v = view(), view(), view()
+        out = torch.full((N, S, H + 1, D), 7.0, device="cuda",
+                         dtype=torch.bfloat16)
+        n = sum(A.LAUNCHES.values())
+        A._small_seq(q, k, v, out[:, :, :H].permute(0, 2, 1, 3), D ** -0.5,
+                     "bhsd")
+        assert sum(A.LAUNCHES.values()) == n + 1
+        _close(out[:, :, :H].permute(0, 2, 1, 3),
+               A.small_seq_attention_ref(q.float(), k.float(), v.float(),
+                                         D ** -0.5))
+        assert bool((out[:, :, H] == 7.0).all())
+    _each([(D,) for D in (40, 72, 80, 152, 160)], check)
 
 
-@pytest.mark.parametrize("D", [40, 72, 80, 152, 160])
 @pytest.mark.parametrize("layout", ["contiguous", "head_split"])
-def test_small_seq_head_dims_and_layouts(gen, D, layout):
+def test_small_seq_head_dims_and_layouts(gen, layout):
     B, H, S = 50, 8, 22
-    if layout == "contiguous":
-        q, k, v = (_randn(gen, B, H, S, D) for _ in range(3))
-    else:
-        q, k, v = (_split(_randn(gen, B, S, H * D), H) for _ in range(3))
-    _small_check(q, k, v)
+
+    def check(D):
+        if layout == "contiguous":
+            q, k, v = (_randn(gen, B, H, S, D) for _ in range(3))
+        else:
+            q, k, v = (_split(_randn(gen, B, S, H * D), H) for _ in range(3))
+        _small_check(q, k, v)
+    _each([(D,) for D in (40, 72, 80, 152, 160)], check)
 
 
 @pytest.mark.parametrize("D", [40, 160])
@@ -240,12 +258,86 @@ def test_kernels_refuse_bad_operands(gen):
         A.flash_attention(q.float(), q.float(), q.float(), 0.1)
     with pytest.raises(ValueError):
         A.flash_attention(q[..., :36], q[..., :36], q[..., :36], 0.1)
-    wide = _randn(gen, 1, 2, 64, 256)
+    wide = _randn(gen, 1, 2, 64, 192)
     with pytest.raises(ValueError):
-        A.flash_attention(wide, wide, wide, 0.1)  # no build for D = 256
+        A.flash_attention(wide, wide, wide, 0.1)  # no build for D = 192
     long = _randn(gen, 1, 2, 65, 40)
     with pytest.raises(ValueError):
         A.small_seq_attention(long, long, long, 0.1)  # S above 64
     wide = _randn(gen, 1, 2, 22, 256)
     with pytest.raises(ValueError):
         A.small_seq_attention(wide, wide, wide, 0.1)  # no build for D = 256
+
+
+# SAM2's flash instances: D = 16 (the mask decoder's token-to-image
+# attention, 22 queries over 4096 image tokens; one consumer warpgroup,
+# 64-row query tiles, 128-key tiles) and D = 256 (memory self-attention,
+# one head; two warpgroups share 64 query rows, 64-key tiles)
+@pytest.mark.parametrize("D", [16, 256])
+def test_flash_sam2_query_tile_edges(gen, D):
+    B, H, Sk = (2, 8, 300) if D == 16 else (2, 1, 300)
+    _each([(Sq,) for Sq in (1, 22, 63, 64, 65, 129)],
+          lambda Sq: _flash_check(_randn(gen, B, H, Sq, D),
+                                  _randn(gen, B, H, Sk, D),
+                                  _randn(gen, B, H, Sk, D)))
+
+
+@pytest.mark.parametrize("D", [16, 256])
+def test_flash_sam2_key_tile_edges(gen, D):
+    B, H, Sq = (2, 8, 22) if D == 16 else (1, 1, 100)
+    _each([(Sk,) for Sk in (1, 63, 64, 65, 127, 128, 129, 4097)],
+          lambda Sk: _flash_check(_randn(gen, B, H, Sq, D),
+                                  _randn(gen, B, H, Sk, D),
+                                  _randn(gen, B, H, Sk, D)))
+
+
+@pytest.mark.parametrize("D", [16, 256])
+def test_flash_sam2_batch_heads(gen, D):
+    Sq, Sk = (22, 4096) if D == 16 else (256, 256)
+    _each([(1, 1), (2, 8), (40, 8), (3, 5)],
+          lambda B, H: _flash_check(_randn(gen, B, H, Sq, D),
+                                    _randn(gen, B, H, Sk, D),
+                                    _randn(gen, B, H, Sk, D)))
+
+
+@pytest.mark.parametrize("D", [16, 256])
+def test_flash_sam2_last_head_of_wider_storage(gen, D):
+    """Head splits of (B, S, H+1, D) storage with the extra head dropped,
+    as the decoder's (B, S, 8*16) projections are split: nothing past a
+    head's D or past the last head is read."""
+    B, H, Sq, Sk = (2, 8, 22, 700) if D == 16 else (2, 1, 130, 300)
+
+    def view(S):
+        return _randn(gen, B, S, H + 1, D)[:, :, :H].permute(0, 2, 1, 3)
+    _flash_check(view(Sq), view(Sk), view(Sk))
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D", [
+    (2, 8, 22, 4096, 16), (2, 1, 4096, 4096, 256), (16, 16, 64, 256, 72),
+])
+def test_flash_sam2_is_deterministic(gen, B, H, Sq, Sk, D):
+    q, k, v = (_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+               _randn(gen, B, H, Sk, D))
+    a = A.flash_attention(q, k, v, D ** -0.5)
+    b = A.flash_attention(q, k, v, D ** -0.5)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [1, 16, 128])
+def test_flash_d72_hiera_stage4_entry(gen, B):
+    """Hiera's stage-4 entry: 64 pooled queries over a 16x16 window of 256
+    keys, 16 heads of 72 (padded to 80)."""
+    H, Sq, Sk, D = 16, 64, 256, 72
+    _flash_check(_randn(gen, B, Sq, H, D).permute(0, 2, 1, 3),
+                 _randn(gen, B, Sk, H, D).permute(0, 2, 1, 3),
+                 _randn(gen, B, Sk, H, D).permute(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("N", [16, 1024])
+def test_small_seq_hiera_qpool_shape(gen, N):
+    """Hiera's stage-2 entry: 16 pooled queries over an 8x8 window of 64
+    keys, 4 heads of 72, through the (B, H, S, D) small_seq route."""
+    H, D = 4, 72
+    _small_check(_split(_randn(gen, N, 16, H * D), H),
+                 _split(_randn(gen, N, 64, H * D), H),
+                 _split(_randn(gen, N, 64, H * D), H))

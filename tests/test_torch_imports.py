@@ -1,5 +1,6 @@
-"""The port (videovanish_tpu_torch) and chip_smoke.py import nothing of JAX
-and nothing of the JAX package, checked on the source with `ast`; and
+"""The port (videovanish_tpu_torch), chip_smoke.py and the port's profile
+scripts import nothing of JAX, nothing of the JAX package and not cv2 (the
+card's machine has neither), checked on the source with `ast`; and
 chip_smoke.py refuses to run without a CUDA device."""
 import ast
 import os
@@ -10,10 +11,11 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "videovanish_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "videovanish_tpu", "cv2")
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  (ROOT / "videovanish_tpu_torch").rglob("*.py")) \
-    + ["chip_smoke.py", "scripts/profile_port_infill.py"]
+    + ["chip_smoke.py", "scripts/profile_port_infill.py",
+       "scripts/profile_port_sam2.py"]
 
 
 def _imported(tree):

@@ -1,13 +1,44 @@
-"""Config tree of the port: the ProPainter, DiffuEraser and infill settings.
+"""Config tree of the port: the SAM2, ProPainter, DiffuEraser and infill
+settings.
 
 A copy of the matching dataclasses of videovanish_tpu/config.py with the
 same defaults (the port keeps its own copy and imports nothing of the JAX
-package). Widths are the published ProPainter and SD1.5 ones; `tiny_config`
-is the CPU-runnable smoke size.
+package). Widths are the published SAM2.1 Hiera-L, ProPainter and SD1.5
+ones; `tiny_config` is the CPU-runnable smoke size.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class Sam2Config:
+    """Hiera-L SAM2.1 video predictor (the published
+    sam2.1_hiera_large.pt architecture)."""
+    checkpoint: str = "checkpoints/sam2.1_hiera_large.orbax"
+    image_size: int = 1024
+    # Hiera-L stages
+    hiera_embed_dim: int = 144
+    hiera_num_heads: int = 2
+    hiera_stages: tuple[int, ...] = (2, 6, 36, 4)
+    hiera_window_spec: tuple[int, ...] = (8, 4, 16, 8)
+    hiera_global_att_blocks: tuple[int, ...] = (23, 33, 43)
+    hiera_window_pos_embed_bkg_spatial_size: tuple[int, int] = (7, 7)
+    # FPN neck
+    neck_d_model: int = 256
+    backbone_channel_list: tuple[int, ...] = (1152, 576, 288, 144)
+    # memory attention / memory encoder
+    mem_dim: int = 64
+    num_maskmem: int = 7  # ring buffer of 6 recent + 1 conditioning slot
+    max_obj_ptrs_in_encoder: int = 16
+    memory_attention_layers: int = 4
+    memory_attention_d_model: int = 256
+    # mask decoder
+    num_multimask_outputs: int = 3
+    iou_head_depth: int = 3
+    # frame format handed to the encoder during propagation: "yuv420" (I420,
+    # 2x2 chroma subsampling, half the bytes of RGB) or "rgb" (exact)
+    wire: str = "yuv420"
 
 
 @dataclass(frozen=True)
@@ -81,6 +112,7 @@ class InfillConfig:
 
 @dataclass(frozen=True)
 class VVConfig:
+    sam2: Sam2Config = field(default_factory=Sam2Config)
     propainter: ProPainterConfig = field(default_factory=ProPainterConfig)
     diffueraser: DiffuEraserConfig = field(default_factory=DiffuEraserConfig)
     infill: InfillConfig = field(default_factory=InfillConfig)
@@ -107,5 +139,18 @@ def tiny_config() -> VVConfig:
             max_img_size=256, raft_iters=2, channels=32, hidden=128,
             depths=2, ffn_channels=5, flowcomp_base=8,
             neighbor_length=4, ref_stride=4, subvideo_length=16,
+        ),
+        sam2=Sam2Config(
+            image_size=128,
+            hiera_embed_dim=32,
+            hiera_stages=(1, 2, 2, 1),
+            hiera_window_spec=(4, 4, 4, 4),
+            hiera_global_att_blocks=(3,),
+            backbone_channel_list=(256, 128, 64, 32),
+            neck_d_model=64,
+            mem_dim=16,
+            memory_attention_layers=2,
+            memory_attention_d_model=64,
+            max_obj_ptrs_in_encoder=4,
         ),
     )

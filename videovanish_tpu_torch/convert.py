@@ -6,7 +6,9 @@ and shapes, so a published state dict loads with `load_state_dict`. Parameters h
 `core/convert.convert_state_dict` produces them from those checkpoints --
 come across with `jax_params_to_state_dict`, which inverts that
 conversion: the name rules (VAE_RULES, UNET_RULES, UNET_SPECIALS,
-RAFT_RULES, FLOWCOMP_RULES, PROPAINTER_RULES) and the leaf transforms
+RAFT_RULES, FLOWCOMP_RULES, PROPAINTER_RULES; SAM2_RULES, SAM2_SPECIALS and
+sam2_fb_preprocess for "sam2", see `_sam2_state_dict`) and the leaf
+transforms
 
   conv kernel   (kh, kw, I, O) -> (O, I, kh, kw), grouped and depthwise
                                   kernels (kh, kw, I/g, O) alike
@@ -114,10 +116,105 @@ def _leaves(tree, path=()):
             yield path + (name,), val
 
 
+# SAM2: JAX module path (dotted) -> the published checkpoint's, in order
+_SAM2_NAME_RULES = [
+    (r"^hiera\b", "image_encoder.trunk"),
+    (r"^neck\.convs_(\d+)$", r"image_encoder.neck.convs.\1.conv"),
+    (r"^prompt_encoder\b", "sam_prompt_encoder"),
+    (r"^decoder\.obj_ptr_proj\b", "obj_ptr_proj"),
+    (r"^decoder\b", "sam_mask_decoder"),
+    (r"\.mlp_fc([12])$", lambda m: f".mlp.layers.{int(m.group(1)) - 1}"),
+    (r"\.mlp_lin([12])$", r".mlp.lin\1"),
+    (r"\.output_upscaling_1$", ".output_upscaling.3"),
+    (r"\.output_upscaling_0$", ".output_upscaling.0"),
+    (r"\.output_upscaling_ln$", ".output_upscaling.1"),
+    (r"\.conv_s4$", ".conv_s0"),
+    (r"\.conv_s8$", ".conv_s1"),
+    # the mask downsampler's Sequential: (conv, norm, GELU) x 4, final conv
+    (r"\.mask_downsampler_layers_(\d+)\.conv$",
+     lambda m: f".mask_downsampler.encoder.{3 * int(m.group(1))}"),
+    (r"\.mask_downsampler_layers_(\d+)\.layer_norm$",
+     lambda m: f".mask_downsampler.encoder.{3 * int(m.group(1)) + 1}"),
+    (r"\.mask_downsampler_final_conv$", ".mask_downsampler.encoder.12"),
+    (r"\.feature_projection$", ".pix_feat_proj"),
+    (r"^memory_encoder\.projection$", "memory_encoder.out_proj"),
+    (r"\.memory_fuser_layers_(\d+)", r".fuser.layers.\1"),
+    (r"(\.fuser\.layers\.\d+)\.layer_norm$", r"\1.norm"),
+    (r"\.depthwise_conv$", ".dwconv"),
+    (r"\.pointwise_conv([12])$", r".pwconv\1"),
+    (r"(^|\.)(blocks|layers|output_hypernetworks_mlps)_(\d+)(?=\.|$)",
+     r"\1\2.\3"),
+]
+# top-level SAM2 leaves: JAX name -> (checkpoint key, shape transform)
+_SAM2_TOP = {
+    "maskmem_tpos_enc": ("maskmem_tpos_enc",
+                         lambda a: a.reshape(a.shape[0], 1, 1, a.shape[1])),
+    "no_memory_embedding": ("no_mem_embed", lambda a: a),
+    "no_object_pointer": ("no_obj_ptr", lambda a: a.reshape(1, -1)),
+    "occlusion_spatial_embedding": ("no_obj_embed_spatial",
+                                    lambda a: a.reshape(1, -1)),
+}
+
+
+def _sam2_state_dict(params: dict) -> dict:
+    """Inverse of the JAX package's SAM2 conversion (sam2_fb_preprocess,
+    SAM2_RULES, SAM2_SPECIALS): position embeddings NHWC -> NCHW, the
+    stacked point embeddings split into four (1, C) tables, the (C,)
+    embedding vectors and the video-level vectors back to (1, C), the
+    temporal encoding to (n, 1, 1, m), transposed-conv kernels (kh, kw, I,
+    O) -> (I, O, kh, kw), the 1x1 high-resolution skips held as dense
+    kernels -> (O, I, 1, 1) convs, and the ConvNeXt layer scale `scale` ->
+    `gamma`."""
+    out = {}
+    for path, arr in _leaves(params):
+        *mods, leaf = path
+        a = np.asarray(arr, dtype=np.float32)
+        if not mods:
+            key, fn = _SAM2_TOP[leaf]
+            out[key] = torch.tensor(np.ascontiguousarray(fn(a)))
+            continue
+        name = ".".join(mods)
+        for pat, rep in _SAM2_NAME_RULES:
+            name = re.sub(pat, rep, name)
+        if leaf == "point_embeddings":
+            for i in range(a.shape[0]):
+                out[f"{name}.point_embeddings.{i}.weight"] = \
+                    torch.tensor(a[i:i + 1])
+            continue
+        if leaf in ("pos_embed", "pos_embed_window"):
+            key, a = f"{name}.{leaf}", a.transpose(0, 3, 1, 2)
+        elif leaf in ("iou_token", "mask_tokens", "obj_score_token",
+                      "not_a_point_embed", "no_mask_embed"):
+            key, a = f"{name}.{leaf}.weight", a.reshape(-1, a.shape[-1])
+        elif leaf == "positional_encoding_gaussian_matrix":
+            key = f"{name}.{leaf}"
+        elif leaf == "kernel":
+            key = name + ".weight"
+            if re.search(r"\.output_upscaling\.[03]$", name):
+                a = a.transpose(2, 3, 0, 1)
+            elif a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif re.search(r"\.conv_s[01]$", name):
+                a = a.T[:, :, None, None]
+            else:
+                a = a.T
+        elif leaf == "scale":
+            key = name + (".gamma" if re.search(r"\.fuser\.layers\.\d+$",
+                                                name) else ".weight")
+        elif leaf == "bias":
+            key = name + ".bias"
+        else:
+            raise ValueError(f"unknown leaf {'/'.join(path)}")
+        out[key] = torch.tensor(np.ascontiguousarray(a))
+    return out
+
+
 def jax_params_to_state_dict(params: dict, model: str) -> dict:
     """JAX parameter tree (nested dicts of arrays) of the "vae", "unet",
-    "brushnet", "raft", "flow_comp" or "generator" -> the port's state dict
-    {checkpoint key: f32 tensor}."""
+    "brushnet", "raft", "flow_comp", "generator" or "sam2" -> the port's
+    state dict {checkpoint key: f32 tensor}."""
+    if model == "sam2":
+        return _sam2_state_dict(params)
     rules = _RULES[model]
     out = {}
     for path, arr in _leaves(params):

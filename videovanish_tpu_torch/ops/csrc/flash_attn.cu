@@ -2,9 +2,13 @@
 //
 // Replaces the two flash kernels of videovanish_tpu/ops/attention.py:
 //   _flash_kernel_inline (:50)  head dims that are not a multiple of 128
-//                               (SD1.5 spatial attention, D = 40/80/160)
+//                               (SD1.5 spatial attention, D = 40/80/160;
+//                               Hiera's windowed and global attention,
+//                               D = 72; the SAM2 mask decoder's
+//                               token-to-image attention, D = 16)
 //   _flash_kernel_iota   (:120) lane-aligned head dims (the VAE mid-block's
-//                               single 512-wide head)
+//                               single 512-wide head; SAM2 memory
+//                               self-attention, one 256-wide head)
 // Both compute softmax(q k^T * scale) v with an f32 running max and sum;
 // one template covers both.
 //
@@ -44,14 +48,20 @@
 //     scale costs nothing per score) feeding ex2.approx.ftz. Only the last
 //     key tile, and only when Sk is ragged, is masked;
 //   * D <= 160 (SPLIT = 1): each consumer warpgroup owns 64 query rows and
-//     all output columns (3 warpgroups, 192 rows, at D = 40; 2 at D = 80
-//     and 160, whose accumulators need the registers). Each warpgroup
+//     all output columns (3 warpgroups, 192 rows, at D = 40; 2 at D = 72,
+//     80 and 160, whose accumulators need the registers). Each warpgroup
 //     issues S of tile kt together with P V of tile kt-1 and computes the
 //     exponentials of tile kt while that P V runs; named barriers pass the
 //     turn to issue products from warpgroup to warpgroup (ping-pong);
-//   * D = 512 (SPLIT = 2): the 64 x 512 f32 output does not fit one
-//     warpgroup's registers, so two warpgroups share 64 query rows and own
-//     256 output columns each. Warpgroup 0 computes the scores and softmax
+//   * D = 16: one consumer warpgroup (the decoder's 22 queries fill less
+//     than one 64-row tile), no ping-pong and no register hand-over, and a
+//     4-slot K/V ring, since one warpgroup has nothing to overlap its loads
+//     with but the loads themselves. The 16 columns sit in a zero-filled
+//     64-column box (TMA reads 32 bytes a row);
+//   * D = 256 and 512 (SPLIT = 2): a 64 x D f32 output needs more than one
+//     warpgroup's registers next to S and P (D = 256: 128 a thread), so two
+//     warpgroups share 64 query rows and own D / 2 output columns each.
+//     Warpgroup 0 computes the scores and softmax
 //     and hands P (bf16) and the row factors to warpgroup 1 through a
 //     double-buffered shared-memory slot. Both warpgroups computing the
 //     scores instead (1.5x the products) measured slower;
@@ -75,7 +85,8 @@ struct FlashCfg {
   // registers per thread: LAUNCH (a multiple of 8) at launch, then the
   // producer drops to PROD and the consumers rise to CONS; setmaxnreg only
   // moves registers the CTA already holds, so NWG*128*CONS + 128*PROD must
-  // stay within THREADS*LAUNCH or the consumers wait forever
+  // stay within THREADS*LAUNCH or the consumers wait forever. NWG = 1
+  // skips the hand-over and keeps the registers ptxas gives it
   static constexpr int LAUNCH = 65536 / THREADS / 8 * 8;
   static constexpr int PROD = NWG == 2 ? 40 : 24;
   static constexpr int CONS_FIT =
@@ -151,7 +162,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (wg == NWG) {
     // ---- producer ----
-    reg_dealloc<C::PROD>();
+    if constexpr (NWG > 1) reg_dealloc<C::PROD>();
     if (threadIdx.x == 128 * NWG) {
       mbar_arrive_expect_tx(q_full, C::Q_BYTES);
       for (int c = 0; c < C::CH; ++c)
@@ -173,7 +184,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     // ---- consumers ----
-    reg_alloc<C::CONS>();
+    if constexpr (NWG > 1) reg_alloc<C::CONS>();
     constexpr int RS = BN / 2;     // score accumulator registers
     constexpr int RO = C::NO / 2;  // output accumulator registers
     const int t = threadIdx.x % 128;
@@ -289,12 +300,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       // warpgroup's products run while the other computes exponentials.
       // Each warpgroup takes n_kt turns; warpgroup 1 hands over once at
       // the start and not after its last turn, so every barrier phase
-      // completes.
-      auto turn = [&]() { named_bar_sync(1 + wg, 256); };
-      auto hand_over = [&](bool last) {
-        if (wg != NWG - 1 || !last) named_bar_arrive(1 + (wg + 1) % NWG, 256);
+      // completes. A single warpgroup takes every turn itself.
+      auto turn = [&]() {
+        if constexpr (NWG > 1) named_bar_sync(1 + wg, 256);
       };
-      if (wg == NWG - 1) named_bar_arrive(1, 256);
+      auto hand_over = [&](bool last) {
+        if constexpr (NWG > 1)
+          if (wg != NWG - 1 || !last)
+            named_bar_arrive(1 + (wg + 1) % NWG, 256);
+      };
+      if constexpr (NWG > 1)
+        if (wg == NWG - 1) named_bar_arrive(1, 256);
       mbar_wait(bar(0, 0), 0);
       turn();
       issue_qk(0);
@@ -460,10 +476,11 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace vv
 
 // Padded head dims this library is built for: those the port dispatches
-// (SD1.5 heads of 40/80/160, the VAE's 512); the wrapper refuses others.
+// (SD1.5 heads of 40/80/160, the VAE's 512; SAM2's 16, 72 and 256); the
+// wrapper refuses others.
 extern "C" int vv_flash_supported(int dp) {
   switch (dp) {
-    case 48: case 80: case 160: case 512:
+    case 16: case 48: case 80: case 160: case 256: case 512:
       return 1;
     default:
       return 0;
@@ -481,9 +498,11 @@ extern "C" int vv_flash_attn_fwd(const void* q, const void* k, const void* v,
   const int dp = (D + 15) / 16 * 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dp) {
+    case 16:  return vv::launch_flash<16, 128, 4, 1, 1>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 48:  return vv::launch_flash<48, 128, 2, 1, 3>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 80:  return vv::launch_flash<80, 128, 2, 1, 2>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 160: return vv::launch_flash<160, 64, 2, 1, 2>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 256: return vv::launch_flash<256, 64, 2, 2, 2>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 512: return vv::launch_flash<512, 64, 1, 2, 2>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
     default:  return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -11,6 +11,10 @@ cv2's (cv2 rounds fixed-point weights).
 
 The ProPainter modules' channel-first resizes (torch's own bilinear
 semantics, align_corners True and False) are `F.interpolate` in f32.
+`resize_bicubic_torch` is torch's bicubic (a = -0.75, half-pixel centres,
+edge-clamped taps) on channel-last input, as Hiera's position embedding
+takes it. SAM2's frame and mask resizes are `resize_bilinear` (cv2
+INTER_LINEAR), as the JAX predictor's.
 """
 from __future__ import annotations
 
@@ -73,6 +77,18 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     top = x.index_select(-3, y0) * (1 - wy) + x.index_select(-3, y1) * wy
     wx = wx[:, None]
     return top.index_select(-2, x0) * (1 - wx) + top.index_select(-2, x1) * wx
+
+
+def resize_bicubic_torch(img: torch.Tensor, out_h: int,
+                         out_w: int) -> torch.Tensor:
+    """Bicubic resize of channel-last (..., H, W, C) through
+    F.interpolate(mode="bicubic", align_corners=False): half-pixel centres,
+    a = -0.75, taps clamped at the edges. Returns f32."""
+    lead, (H, W, C) = img.shape[:-3], img.shape[-3:]
+    x = img.float().reshape(-1, H, W, C).permute(0, 3, 1, 2)
+    y = F.interpolate(x, size=(out_h, out_w), mode="bicubic",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, C)
 
 
 def host_resize_bilinear_u8(frames: torch.Tensor, h: int, w: int) -> torch.Tensor:
