@@ -47,11 +47,32 @@
    frames per second of propagation, the stage split, peak memory, and the
    bf16 logits' drift from the same weights in f32 (run on the CPU) on the
    prompt frame (a record, not a gate);
-7. prints one {"kernels": [...]} line, the card line, and last
+7. weights: writes a synthetic file set in the published layouts to
+   build/weights_smoke (the keys and shapes of
+   tests/fixtures/manifests/*.json, seeded values: the DiffuEraser UNet in
+   f16, BrushNet in bf16, the legacy-named VAE, CLIP's text tower and a
+   rank-64 PCM LoRA as .safetensors; RAFT, flow completion and the
+   InpaintGenerator as .pth; SAM2's fb .pt), converts DiffuEraser's with
+   the port's CLI (the LoRA merged into the UNet, then `--assemble
+   diffueraser`, whose null embedding the 768-wide CLIP computes on the
+   card), points a config at the outputs and the published files, and runs
+   a 22-frame 512x512 `run_infill_on_frames` request with the prior
+   computed and an 8-frame `run_sam2_on_frames` request with two objects.
+   Checks every loaded tensor against its file bitwise (after the renames
+   and the cast to the module's dtype), each merged weight against the
+   plain formula in f64 (half a unit in the last place of the weight's
+   dtype plus the f32 rounding of the rank products), the card's null
+   embedding against the same CLIP in f32 on the CPU (1e-4 of its max),
+   the requests as above, and the kernels they launch. Prints per-file
+   seconds (write, read, to the card; the CLI's read, merge and write),
+   the CLIP encode ms, the requests' wall and peak memory; deletes the
+   files;
+8. prints one {"kernels": [...]} line, the card line, and last
    {"ok": true, "device": {...}}. A kernel row's `launches` counts the two
    requests with the prior passed in and the SAM2 request (each instance
-   is launched by one of them; `launches_prior_request` and
-   `launches_sam2_request` give the two requests apart).
+   is launched by one of them; `launches_prior_request`,
+   `launches_sam2_request` and `launches_weights_phase` give the other
+   runs apart).
 
 After the build it prints each kernel's `ptxas` lines (registers, spills,
 warnings) and, where the toolkit has `cuobjdump`, the count of HGMMA (wgmma)
@@ -66,6 +87,7 @@ Any failure raises and exits non-zero.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import math
@@ -83,6 +105,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 EX2_PER_SM_CLOCK = 16
 TOL = 1e-2
+# the null embedding: the same port code in f32 on the card and the CPU
+NULL_TOL = 1e-4
 
 SRC_FLASH = "videovanish_tpu_torch/ops/csrc/flash_attn.cu"
 SRC_SMALL = "videovanish_tpu_torch/ops/csrc/small_seq_attn.cu"
@@ -772,6 +796,26 @@ def sam2_stage_split(pred, run):
     return secs, total, sorted(bad)
 
 
+def check_masks(out, T, H, W) -> None:
+    """T (H, W, 3) uint8 mask frames colored black or as objects 1 and
+    2."""
+    import numpy as np
+    from videovanish_tpu_torch.pipeline.colors import color_for_obj
+    palette = {(0, 0, 0), color_for_obj(1), color_for_obj(2)}
+    if len(out) != T or any(o.shape != (H, W, 3) or o.dtype != np.uint8
+                            for o in out):
+        raise RuntimeError(f"run_sam2_on_frames: expected {T} ({H}, {W}, 3) "
+                           f"uint8 frames")
+    packed = {(c >> 16, (c >> 8) & 255, c & 255) for o in out
+              for c in np.unique((o[..., 0].astype(np.int32) << 16)
+                                 | (o[..., 1].astype(np.int32) << 8)
+                                 | o[..., 2])}
+    colors = {tuple(int(v) for v in c) for c in packed}
+    if not colors <= palette:
+        raise RuntimeError(f"mask colors outside black and the two objects' "
+                           f"colors: {sorted(colors - palette)}")
+
+
 def run_sam2_request(seed: int = 0):
     """Request 3: run_sam2_on_frames on 24 frames at 1280x720 with the
     default Sam2Config (Hiera-L, 1024x1024 input) and seeded random
@@ -816,19 +860,7 @@ def run_sam2_request(seed: int = 0):
                      "propagation_s": marks[80] - marks[45],
                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
     out = runs[0]["out"]
-    palette = {(0, 0, 0), color_for_obj(1), color_for_obj(2)}
-    if len(out) != T or any(o.shape != (H, W, 3) or o.dtype != np.uint8
-                            for o in out):
-        raise RuntimeError("run_sam2_on_frames: expected 24 (720, 1280, 3) "
-                           "uint8 frames")
-    packed = {(c >> 16, (c >> 8) & 255, c & 255) for o in out
-              for c in np.unique((o[..., 0].astype(np.int32) << 16)
-                                 | (o[..., 1].astype(np.int32) << 8)
-                                 | o[..., 2])}
-    colors = {tuple(int(v) for v in c) for c in packed}
-    if not colors <= palette:
-        raise RuntimeError(f"mask colors outside black and the two objects' "
-                           f"colors: {sorted(colors - palette)}")
+    check_masks(out, T, H, W)
     if not all(np.array_equal(a, b) for a, b in zip(out, runs[1]["out"])):
         raise RuntimeError("a second run of the request differs from the "
                            "first")
@@ -889,6 +921,381 @@ def run_sam2_request(seed: int = 0):
         "bf16_logit_drift": drift}
 
 
+# the published weight files the weights phase writes: (manifest in
+# tests/fixtures/manifests, file name, dtype); DiffuEraser's and CLIP's as
+# .safetensors, ProPainter's and SAM2's as .pth / .pt
+WEIGHT_FILES = (
+    ("diffueraser_unet_main", "unet_main.safetensors", "float16"),
+    ("brushnet", "brushnet.safetensors", "bfloat16"),
+    ("sd_vae_ft_mse", "sd-vae-ft-mse.safetensors", "float32"),
+    ("clip_vit_l_text", "text_encoder.safetensors", "float32"),
+    ("pcm_sd15_2step_lora", "pcm_sd15_2step_lora.safetensors", "float16"),
+    ("raft_things", "raft-things.pth", "float32"),
+    ("recurrent_flow_completion", "recurrent_flow_completion.pth",
+     "float32"),
+    ("propainter", "ProPainter.pth", "float32"),
+    ("sam2_1_hiera_large_fb", "sam2.1_hiera_large.pt", "float32"),
+)
+MANIFESTS = "tests/fixtures/manifests"
+_ST_DTYPES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16",
+              "int64": "I64"}
+
+
+def synthetic_state(manifest: dict, dtype, gen) -> dict:
+    """Seeded values for a manifest's keys and shapes, at the scale of the
+    port's seeded init: weights of two or more dimensions (and their
+    biases) uniform in +-1/sqrt(fan_in), LoRA up factors a tenth of that,
+    one-dimensional weights (norm scales) near 1, other vectors and tables
+    normal at 0.02, batch-norm statistics 0 and 1, counters and position
+    ids as integers. Made on the card, returned on the CPU."""
+    import torch
+    out = {}
+    for key, shape in manifest.items():
+        shape = tuple(shape)
+        if key.endswith("num_batches_tracked"):
+            out[key] = torch.zeros(shape, dtype=torch.int64)
+            continue
+        if key.endswith("position_ids"):
+            out[key] = torch.arange(shape[-1]).reshape(shape)
+            continue
+        if key.endswith("running_var") or key.endswith("running_mean"):
+            t = torch.full(shape, float(key.endswith("running_var")),
+                           device="cuda")
+        elif key.endswith(".weight") and len(shape) == 1:
+            t = 1 + 0.1 * torch.rand(shape, generator=gen, device="cuda")
+        else:
+            w = manifest.get(key[:-len("bias")] + "weight") \
+                if key.endswith(".bias") else shape
+            if key.endswith((".weight", ".bias")) and w and len(w) >= 2 \
+                    and "embedding" not in key:
+                bound = math.prod(w[1:]) ** -0.5 \
+                    * (0.1 if ".lora_B." in key else 1.0)
+                t = (2 * torch.rand(shape, generator=gen, device="cuda")
+                     - 1) * bound
+            else:
+                t = 0.02 * torch.randn(shape, generator=gen, device="cuda")
+        out[key] = t.to(dtype).cpu()
+    return out
+
+
+def write_safetensors(path, state: dict) -> None:
+    """A .safetensors file (header padded to 8 bytes, as the safetensors
+    package writes it)."""
+    import torch
+    header, off = {}, 0
+    for k, t in state.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": _ST_DTYPES[str(t.dtype)[6:]],
+                     "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for t in state.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy()
+                    .data)
+
+
+def launches_by_class(counts: dict, classes) -> dict:
+    """Launches summed by instance-name prefix; fails if a class has
+    none."""
+    out = {c: sum(n for k, n in counts.items() if k.startswith(c))
+           for c in classes}
+    if not all(out.values()):
+        raise RuntimeError(f"kernels not launched: {out}")
+    return out
+
+
+def check_loaded(label, module_state: dict, file_state: dict) -> int:
+    """Every tensor of the file (after the renames) equals the module's,
+    cast to the module's dtype, bitwise; returns the count."""
+    import torch
+    if sorted(module_state) != sorted(file_state):
+        raise RuntimeError(f"{label}: the loaded keys differ from the file's")
+    for k, want in file_state.items():
+        got = module_state[k]
+        if not torch.equal(got, want.to(got.device, got.dtype)):
+            raise RuntimeError(f"{label}: {k} differs from the file's")
+    return len(file_state)
+
+
+def check_merge(unet: dict, merged: dict, lora: dict) -> dict:
+    """Each merged weight against W + up @ down in f64 (scale 1, alpha =
+    rank): within half a unit in the last place of W's dtype plus the f32
+    rounding of the sum of rank products, on the card. Every other weight
+    is the file's, bitwise. Returns {"entries", "max_abs_err",
+    "max_err_ulps"} (ulps of the weight's dtype at the result)."""
+    import torch
+    from videovanish_tpu_torch.convert import parse_lora_state
+    entries = parse_lora_state(lora)
+    flat = {k[:-len(".weight")]: k for k in unet if k.endswith(".weight")}
+    targets = {flat[n]: ent for n, ent in entries.items()}
+    if len(targets) != len(entries):
+        raise RuntimeError("LoRA entries without a UNet weight")
+    worst, ulps, over = 0.0, 0.0, 0.0
+    for k, w in unet.items():
+        if k not in targets:
+            if not torch.equal(merged[k], w):
+                raise RuntimeError(f"unet: {k} changed without a LoRA entry")
+            continue
+        ent = targets[k]
+        w = w.cuda()
+        up = ent["up"].cuda().double().flatten(1)
+        down = ent["down"].cuda().double().flatten(1)
+        r = down.shape[0]
+        delta = (up @ down).reshape(w.shape) * (ent.get("alpha", r) / r)
+        ref = w.double() + delta
+        got = merged[k].cuda()
+        mag = torch.maximum(got.abs(), ref.abs().to(got.dtype))
+        ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf")))
+               - mag).double()
+        limit = 0.5 * ulp + (r + 2) * 2.0 ** -24 * (
+            w.double().abs() + (up.abs() @ down.abs()).reshape(w.shape))
+        err = (got.double() - ref).abs()
+        worst = max(worst, float(err.max()))
+        ulps = max(ulps, float((err / ulp).max()))
+        over = max(over, float((err - limit).max()))
+    if over > 0:
+        raise RuntimeError(f"merged LoRA weights off the plain formula by "
+                           f"{over:.3g} beyond the limit")
+    return {"entries": len(targets), "max_abs_err": worst,
+            "max_err_ulps": ulps}
+
+
+def run_weights_phase(seed: int = 0):
+    """Synthetic published files at full width, converted by the port's CLI
+    and loaded through the config's paths: one infill request with the prior
+    computed (22 frames at 512x512: flash, bhsd and token-major small_seq)
+    and one SAM2 request (8 frames, 2 objects). Returns (launch counts,
+    report). The files are deleted at the end."""
+    import numpy as np
+    import torch
+    from videovanish_tpu_torch import checkpoint
+    from videovanish_tpu_torch.cli import convert as cli
+    from videovanish_tpu_torch.config import default_config
+    from videovanish_tpu_torch.convert import published_state_dict
+    from videovanish_tpu_torch.models.diffueraser.text_encoder import (
+        CLIPTextModel, clip_dims, derive_null_text_emb,
+    )
+    from videovanish_tpu_torch.ops import attention as A
+    from videovanish_tpu_torch.pipeline import infill, masker
+
+    t_phase = time.perf_counter()
+    tmp = os.path.join("build", "weights_smoke")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        report = {"files": {}}
+        paths, states = {}, {}
+        gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+        for manifest, name, dtype in WEIGHT_FILES:
+            with open(os.path.join(MANIFESTS, manifest + ".json")) as f:
+                state = synthetic_state(json.load(f), getattr(torch, dtype),
+                                        gen)
+            path = paths[manifest] = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            if name.endswith(".safetensors"):
+                write_safetensors(path, state)
+            else:
+                torch.save({"model": state} if manifest.startswith("sam2")
+                           else state, path)
+            write_s = time.perf_counter() - t0
+            # read (a mapping, or the unpickling of a .pth), then to the card
+            t0 = time.perf_counter()
+            back = checkpoint.load_torch_state(path)
+            read_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            on_card = {k: v.to("cuda") for k, v in back.items()}
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            del on_card, back
+            states[manifest] = state
+            report["files"][name] = {
+                "dtype": dtype, "gib": os.path.getsize(path) / 2 ** 30,
+                "tensors": len(state), "write_s": write_s, "read_s": read_s,
+                "to_card_s": card_s}
+            print(f"[weights] {name}: {len(state)} tensors, {dtype}, "
+                  f"{os.path.getsize(path) / 2 ** 30:.3f} GiB; write "
+                  f"{write_s:.3f} s, read {read_s:.3f} s, to the card "
+                  f"{card_s:.3f} s", flush=True)
+
+        # the port's convert CLI: each DiffuEraser piece (the PCM LoRA
+        # merged into the UNet), then --assemble with CLIP on the card
+        conv = {}
+        for model, manifest, extra in (
+                ("unet", "diffueraser_unet_main",
+                 ["--lora", paths["pcm_sd15_2step_lora"]]),
+                ("brushnet", "brushnet", []), ("vae", "sd_vae_ft_mse", []),
+                ("clip", "clip_vit_l_text", [])):
+            conv[model] = os.path.join(tmp, f"{model}.pt")
+            t0 = time.perf_counter()
+            res = cli.main(["--input", paths[manifest], "--model", model,
+                            "--output", conv[model], *extra])
+            report["files"][f"convert {model}"] = dict(
+                res["seconds"], total_s=time.perf_counter() - t0)
+        assembled = os.path.join(tmp, "diffueraser.pt")
+        t0 = time.perf_counter()
+        res = cli.main(["--assemble", "diffueraser", "--vae", conv["vae"],
+                        "--unet", conv["unet"], "--brushnet",
+                        conv["brushnet"], "--clip", conv["clip"], "--output",
+                        assembled, "--device", "cuda"])
+        report["files"]["assemble"] = dict(res["seconds"],
+                                           total_s=time.perf_counter() - t0)
+
+        # the assembled file against the published ones
+        tree = checkpoint.load_torch_state(assembled)
+        report["merge"] = check_merge(states["diffueraser_unet_main"],
+                                      tree["unet"],
+                                      states["pcm_sd15_2step_lora"])
+        check_loaded("vae file", tree["vae"], published_state_dict(
+            states["sd_vae_ft_mse"], "vae"))
+        check_loaded("brushnet file", tree["brushnet"], states["brushnet"])
+        clip_state = published_state_dict(states["clip_vit_l_text"], "clip")
+        check_loaded("clip file", checkpoint.load_torch_state(conv["clip"]),
+                     clip_state)
+        null_cpu = derive_null_text_emb(clip_state, device="cpu")
+        null_err = float((tree["null_text_emb"] - null_cpu).abs().max())
+        null_max = float(null_cpu.abs().max())
+        if not null_err <= NULL_TOL * null_max:
+            raise RuntimeError(f"null_text_emb from the card off the CPU's "
+                               f"by {null_err} (max {null_max})")
+        with torch.device("meta"):
+            clip = CLIPTextModel(**clip_dims(clip_state))
+        clip.to_empty(device="cuda").load_state_dict(clip_state)
+        ids = torch.tensor([[49406] + [49407] * 76], device="cuda")
+        with torch.inference_mode():
+            clip_ms = time_ms(lambda: clip(ids), min_total_ms=100)
+        del clip
+        report["clip"] = {"encode_ms": clip_ms, "null_max_abs_err": null_err,
+                          "null_max_abs": null_max}
+        print(f"[weights] LoRA: {report['merge']['entries']} entries merged,"
+              f" max |merged - plain| {report['merge']['max_abs_err']:.3g} "
+              f"({report['merge']['max_err_ulps']:.3f} ulp of float16); "
+              f"CLIP encode {clip_ms:.3f} ms (f32, 77 tokens); "
+              f"null_text_emb card vs CPU max |diff| {null_err:.3g} of max "
+              f"{null_max:.3g}", flush=True)
+
+        # the config's paths at the converted and published files
+        cfg = default_config()
+        cfg = dataclasses.replace(
+            cfg,
+            diffueraser=dataclasses.replace(
+                cfg.diffueraser, checkpoint=assembled,
+                vae_checkpoint=os.path.join(tmp, "absent")),
+            propainter=dataclasses.replace(
+                cfg.propainter, checkpoint=paths["propainter"],
+                raft_checkpoint=paths["raft_things"],
+                flowcomp_checkpoint=paths["recurrent_flow_completion"]),
+            sam2=dataclasses.replace(
+                cfg.sam2, checkpoint=paths["sam2_1_hiera_large_fb"]))
+        infill.set_config(cfg)
+        masker.reset_predictor()
+        torch.cuda.empty_cache()
+
+        T, H, W = 22, 512, 512
+        frames, masks, _ = synthetic_request(T, H, W, seed + 5)
+        A.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = infill.get_model("2-Step", device="cuda")
+        pp = infill.get_propainter("cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        latents = []
+        model.latent_hook = latents.append
+        t0 = time.perf_counter()
+        out = infill.run_infill_on_frames(list(frames), list(masks),
+                                          propainer_frames=None,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        infill_s = time.perf_counter() - t0
+        counts_infill = dict(A.LAUNCHES)
+        infill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        model.latent_hook = None
+        z, change = check_request(out, frames, masks, latents, cfg)
+        n = sum(check_loaded(f"diffueraser {name}",
+                             getattr(model, name).state_dict(), tree[name])
+                for name in ("vae", "unet", "brushnet"))
+        if not torch.equal(model.null_text_emb.cpu(), tree["null_text_emb"]):
+            raise RuntimeError("null_text_emb differs from the file's")
+        for name, manifest, model_name in (
+                ("raft", "raft_things", "raft"),
+                ("flow_comp", "recurrent_flow_completion", "flow_completion"),
+                ("generator", "propainter", "propainter")):
+            n += check_loaded(name, getattr(pp, name).state_dict(),
+                              published_state_dict(states[manifest],
+                                                   model_name))
+        classes = launches_by_class(counts_infill, (
+            "flash_attn_fwd[D=40,", "flash_attn_fwd[D=512,",
+            "small_seq_attn[bhsd,", "small_seq_attn[tokenmajor,"))
+        print(f"[weights] infill request {T}x{H}x{W}, prior computed, "
+              f"published-format weights: models loaded in {load_s:.2f} s, "
+              f"request {infill_s:.2f} s, peak {infill_peak:.2f} GiB; "
+              f"launches by kernel {json.dumps(classes)}", flush=True)
+        del model, pp, latents, z
+        infill.set_config(cfg)  # drops the infill models
+        torch.cuda.empty_cache()
+
+        # SAM2 on the published-format file: 8 frames, 2 objects
+        T, H, W = 8, 720, 1280
+        frames = list(synthetic_request(T, H, W, seed + 7)[0])
+        ann = sam2_annotations(H, W)
+        ann["keyframes"] = ann["keyframes"][:1]
+        A.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = masker._get_predictor("cuda")
+        torch.cuda.synchronize()
+        sam_load_s = time.perf_counter() - t0
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(masker.run_sam2_on_frames(frames, ann, device="cuda"))
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        counts_sam2 = dict(A.LAUNCHES)
+        sam2_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_masks(runs[0], T, H, W)
+        if not all(np.array_equal(a, b) for a, b in zip(runs[0], runs[2])):
+            raise RuntimeError("a second SAM2 run differs from the first")
+        n += check_loaded("sam2", pred.model.state_dict(),
+                          published_state_dict(
+                              states["sam2_1_hiera_large_fb"], "sam2"))
+        sam2_classes = launches_by_class(counts_sam2, (
+            "flash_attn_fwd[D=72,", "flash_attn_fwd[D=16,",
+            "flash_attn_fwd[D=256,", "small_seq_attn[bhsd,",
+            "small_seq_attn[tokenmajor,"))
+        print(f"[weights] SAM2 request {T}x{H}x{W}, 2 objects: predictor "
+              f"loaded in {sam_load_s:.2f} s, cold {runs[1]:.3f} s, warm "
+              f"{runs[3]:.3f} s, peak {sam2_peak:.2f} GiB; {n} loaded "
+              f"tensors equal their files'", flush=True)
+        del pred
+        masker.reset_predictor()
+        infill.set_config(default_config())
+        torch.cuda.empty_cache()
+        counts = {k: counts_infill.get(k, 0) + counts_sam2.get(k, 0)
+                  for k in set(counts_infill) | set(counts_sam2)}
+        report.update({
+            "loaded_tensors_checked": n,
+            "infill": {"frames": [22, 512, 512], "load_s": load_s,
+                       "seconds": infill_s, "peak_gib": infill_peak,
+                       "inside_mean_abs_change": change,
+                       "launches_by_kernel": classes},
+            "sam2": {"frames": [T, H, W], "objects": 2, "load_s": sam_load_s,
+                     "seconds_cold": runs[1], "seconds": runs[3],
+                     "peak_gib": sam2_peak,
+                     "launches_by_kernel": sam2_classes}})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"[weights] phase {report['phase_s']:.1f} s", flush=True)
+    return counts, report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -937,12 +1344,14 @@ def main(argv=None) -> int:
     report.append(prior_report)
     counts_3, sam2_report = run_sam2_request(args.seed)
     report.append(sam2_report)
+    counts_4, weights_report = run_weights_phase(args.seed)
     for row in rows:
         # each instance is driven by the infill requests or by SAM2
         row["launches"] = counts.get(row["name"], 0) + \
             counts_3.get(row["name"], 0)
         row["launches_prior_request"] = counts_2.get(row["name"], 0)
         row["launches_sam2_request"] = counts_3.get(row["name"], 0)
+        row["launches_weights_phase"] = counts_4.get(row["name"], 0)
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
@@ -951,12 +1360,13 @@ def main(argv=None) -> int:
     if sam2_missing:
         raise RuntimeError(f"SAM2 kernel instances not launched by the SAM2 "
                            f"request: {sam2_missing}")
-    unchecked = sorted((set(counts) | set(counts_2) | set(counts_3))
-                       - {r["name"] for r in rows})
+    unchecked = sorted((set(counts) | set(counts_2) | set(counts_3)
+                        | set(counts_4)) - {r["name"] for r in rows})
     if unchecked:
         raise RuntimeError(f"main-path kernel instances without a "
                            f"kernel-phase check: {unchecked}")
-    print(json.dumps({"kernels": rows, "main_path": report}))
+    print(json.dumps({"kernels": rows, "main_path": report,
+                      "weights_phase": weights_report}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from videovanish_tpu_torch.ops import attention as P
 
 J = importlib.import_module("videovanish_tpu.ops.attention")

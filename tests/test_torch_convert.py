@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from videovanish_tpu.core.convert import (
     UNET_RULES, UNET_SPECIALS, VAE_RULES, convert_state_dict,
 )

@@ -20,6 +20,7 @@ import pytest
 import torch
 from scipy.ndimage import binary_dilation
 
+from torch_threads import one_torch_thread  # noqa: F401
 from videovanish_tpu.config import ProPainterConfig as JProPainterConfig
 from videovanish_tpu.core.convert import (
     FLOWCOMP_RULES, PROPAINTER_RULES, RAFT_RULES, convert_state_dict,

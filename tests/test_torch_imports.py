@@ -1,7 +1,9 @@
 """The port (videovanish_tpu_torch), chip_smoke.py and the port's profile
-scripts import nothing of JAX, nothing of the JAX package and not cv2 (the
-card's machine has neither), checked on the source with `ast`; and
-chip_smoke.py refuses to run without a CUDA device."""
+scripts import nothing of JAX, nothing of the JAX package, and neither cv2
+nor the safetensors, regex and transformers packages (the port keeps its
+own .safetensors reader and pre-tokenizer and needs torch alone), checked
+on the source with `ast`; and chip_smoke.py refuses to run without a CUDA
+device."""
 import ast
 import os
 import subprocess
@@ -11,7 +13,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "videovanish_tpu", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "flax", "videovanish_tpu", "cv2", "safetensors",
+             "regex", "transformers")
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  (ROOT / "videovanish_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py", "scripts/profile_port_infill.py",

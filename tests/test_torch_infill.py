@@ -6,7 +6,9 @@ the same weights and noise, the prior passed in or computed by each
 package's Propainter (the same weights on both sides; sub-videos of 6
 frames): uint8-identical where the feathered alpha is 0, PSNR above 45 dB
 where it is not. Plus the window plan, the blend ramps, the resizes against
-cv2, and a call without a prior.
+cv2, and a call without a prior. The paths above the networks (guidance,
+a prompt embedding, the full-frame output, the latent carry across two
+calls) run the same way on a one-level UNet and BrushNet.
 """
 import cv2
 import jax
@@ -17,6 +19,7 @@ import torch
 
 import videovanish_tpu.pipeline.infill as jinfill
 from test_torch_end2end_propainter import PCFG, propainters
+from torch_threads import one_torch_thread  # noqa: F401
 from videovanish_tpu.config import DiffuEraserConfig as JCfg
 from videovanish_tpu.config import ProPainterConfig as JPCfg
 from videovanish_tpu.config import VVConfig as JVV
@@ -45,17 +48,20 @@ GEOMETRY = dict(max_img_size=H, clip_length=6, clip_overlap=2,
                 block_out_channels=(32, 64), layers_per_block=1,
                 cross_attention_dim=64, attention_head_dim=8,
                 vae_block_out_channels=(16, 16, 16, 16))
+# the guidance / prompt / full-frame and latent-carry tests hold code
+# above the networks, so they run a one-level UNet and BrushNet, whose JAX
+# programs compile in about a third of the time
+ONE_LEVEL = dict(block_out_channels=(32,))
 FEATHER = 3
 DILATE = 8
 
 
-@pytest.fixture(scope="module")
-def shared():
+def _scene(**geometry):
     """Seeded random weights as a JAX parameter tree (made by the port,
     carried over by the JAX package's own converter), the JAX noise, and
     the test_e2e_quality scene."""
-    port = DiffuEraser(config=DiffuEraserConfig(**GEOMETRY), device="cpu",
-                       seed=3)
+    port = DiffuEraser(config=DiffuEraserConfig(**{**GEOMETRY, **geometry}),
+                       device="cpu", seed=3)
 
     def sd(m):
         return {k: v.numpy() for k, v in m.state_dict().items()}
@@ -84,6 +90,16 @@ def shared():
     return params, noise, frames, masks, prior
 
 
+@pytest.fixture(scope="module")
+def shared():
+    return _scene()
+
+
+@pytest.fixture(scope="module")
+def shared_one_level():
+    return _scene(**ONE_LEVEL)
+
+
 _JAX_MODELS = {}
 
 
@@ -96,59 +112,103 @@ def _jax_diffueraser(params, dcfg):
     return _JAX_MODELS[key]
 
 
-def _run_jax(params, frames, masks, prior, **flags):
-    """prior None: the JAX Propainter of `propainters()` computes it."""
-    dcfg = JCfg(**GEOMETRY, **flags)
+def _with_forward_args(model, forward_args):
+    """The model with `forward_args` overriding those of the pipeline's
+    forward call (which passes guidance_scale=None and no prompt)."""
+    if forward_args:
+        orig = type(model).forward
+
+        def forward(*a, **k):
+            return orig(model, *a, **{**k, **forward_args})
+        model.forward = forward
+    return model
+
+
+def _run_jax(params, frames, masks, prior, forward_args=None, call=None,
+             **flags):
+    """prior None: the JAX Propainter of `propainters()` computes it.
+    forward_args go into DiffuEraser.forward, call into
+    run_infill_on_frames."""
+    dcfg = JCfg(**{**GEOMETRY, **flags})
     jinfill.set_config(JVV(diffueraser=dcfg, propainter=JPCfg(**PCFG)))
-    jinfill.video_inpainting_sd = _jax_diffueraser(params, dcfg)
+    model = _jax_diffueraser(params, dcfg)
+    jinfill.video_inpainting_sd = _with_forward_args(model, forward_args)
     jinfill.last_ckpt = "2-Step"
     # the prior is passed in (never called), or computed by the shared one
     jinfill.propainter = object() if prior is not None else propainters()[1]
     try:
-        return np.stack(jinfill.run_infill_on_frames(
+        return jinfill.run_infill_on_frames(
             list(frames), list(masks), mask_dilation_iter=DILATE,
             propainer_frames=None if prior is None else list(prior),
-            max_img_size=H, feather_px=FEATHER))
+            max_img_size=H, feather_px=FEATHER, **(call or {}))
     finally:
+        model.__dict__.pop("forward", None)
         jinfill.set_config(j_tiny())
 
 
-def _run_port(params, noise, frames, masks, prior, **flags):
-    dcfg = DiffuEraserConfig(**GEOMETRY, **flags)
+def _run_port(params, noise, frames, masks, prior, forward_args=None,
+              call=None, latent_hook=None, **flags):
+    dcfg = DiffuEraserConfig(**{**GEOMETRY, **flags})
     pinfill.set_config(VVConfig(diffueraser=dcfg,
                                 propainter=ProPainterConfig(**PCFG)))
-    pinfill.video_inpainting_sd = DiffuEraser(
+    model = DiffuEraser(
         config=dcfg, params=params, device="cpu",
         noise=lambda idx, shape: torch.from_numpy(noise[list(idx)]))
+    model.latent_hook = latent_hook
+    pinfill.video_inpainting_sd = _with_forward_args(model, forward_args)
     pinfill.last_ckpt = "2-Step"
     pinfill.propainter = propainters()[0]
     try:
-        return np.stack(pinfill.run_infill_on_frames(
+        return pinfill.run_infill_on_frames(
             list(frames), list(masks), mask_dilation_iter=DILATE,
             propainer_frames=None if prior is None else list(prior),
-            max_img_size=H, feather_px=FEATHER, device="cpu"))
+            max_img_size=H, feather_px=FEATHER, device="cpu",
+            **(call or {}))
     finally:
         pinfill.set_config(VVConfig())
 
 
-def check_pipeline_matches_jax(shared, computed_prior=False, **flags):
-    params, noise, frames, masks, prior = shared
-    if computed_prior:
-        prior = None
-    ref = _run_jax(params, frames, masks, prior, **flags)
-    got = _run_port(params, noise, frames, masks, prior, **flags)
-    assert got.shape == ref.shape == frames.shape and got.dtype == np.uint8
+def _outside(masks):
+    """Where the feathered alpha of the dilated masks is 0."""
     dil = binarize_and_dilate(torch.from_numpy(masks[..., None]), DILATE)
-    alpha = feather_alpha(dil > 0, float(FEATHER)).numpy()
-    outside = alpha == 0
+    return feather_alpha(dil > 0, float(FEATHER)).numpy() == 0
+
+
+def _psnr(a, b) -> float:
+    err = a.astype(np.float64) - b
+    return 10 * np.log10(255.0 ** 2 / max(np.mean(err ** 2), 1e-12))
+
+
+def assert_matches_jax(got, ref, frames, masks, keep_unmasked=True):
+    """uint8-identical to the JAX output (and the input, keeping it) where
+    the feathered alpha is 0, PSNR above 45 dB where it is not; without
+    keep_unmasked, PSNR above 45 dB on both sides."""
+    got, ref = np.stack(got), np.stack(ref)
+    assert got.shape == ref.shape == frames.shape and got.dtype == np.uint8
+    outside = _outside(masks)
     assert outside.any() and (~outside).any()
-    np.testing.assert_array_equal(got[outside], ref[outside])
-    np.testing.assert_array_equal(got[outside], frames[outside])
-    err = got[~outside].astype(np.float64) - ref[~outside]
-    psnr = 10 * np.log10(255.0 ** 2 / max(np.mean(err ** 2), 1e-12))
+    if keep_unmasked:
+        np.testing.assert_array_equal(got[outside], ref[outside])
+        np.testing.assert_array_equal(got[outside], frames[outside])
+    else:
+        psnr = _psnr(got[outside], ref[outside])
+        assert psnr > 45.0, f"PSNR outside the mask {psnr:.2f} dB"
+    psnr = _psnr(got[~outside], ref[~outside])
     assert psnr > 45.0, f"PSNR inside the mask {psnr:.2f} dB"
     # the model really changed the masked pixels
     assert np.abs(got[~outside].astype(int) - frames[~outside]).max() > 8
+
+
+def check_pipeline_matches_jax(shared, computed_prior=False,
+                               forward_args=None, call=None, **flags):
+    params, noise, frames, masks, prior = shared
+    if computed_prior:
+        prior = None
+    ref = _run_jax(params, frames, masks, prior, forward_args, call, **flags)
+    got = _run_port(params, noise, frames, masks, prior, forward_args, call,
+                    **flags)
+    assert_matches_jax(got, ref, frames, masks,
+                       (call or {}).get("keep_unmasked_original", True))
 
 
 def test_pipeline_matches_jax(shared):
@@ -162,6 +222,77 @@ def test_pipeline_with_computed_prior_matches_jax(shared):
     from the dilated masks (two chunks of 6 frames) and goes on into
     DiffuEraser."""
     check_pipeline_matches_jax(shared, computed_prior=True)
+
+
+def test_guidance_prompt_and_full_frame_paths_match_jax(shared_one_level):
+    """The paths the other tests leave out: classifier-free guidance at
+    2.0, a prompt embedding in place of the null one, both together (into
+    DiffuEraser.forward, which run_infill_on_frames calls with neither),
+    and keep_unmasked_original=False (the whole decoded frame comes
+    back)."""
+    prompt = (np.random.default_rng(21).standard_normal((77, 64)) * 0.1) \
+        .astype(np.float32)
+    for forward_args in ({"guidance_scale": 2.0}, {"prompt_embeds": prompt},
+                         {"guidance_scale": 2.0, "prompt_embeds": prompt}):
+        check_pipeline_matches_jax(shared_one_level,
+                                   forward_args=forward_args, **ONE_LEVEL)
+    check_pipeline_matches_jax(shared_one_level,
+                               call={"keep_unmasked_original": False},
+                               **ONE_LEVEL)
+
+
+def test_latent_carry_matches_single_pass_and_jax(shared_one_level):
+    """A 14-frame clip in one call (windows [0, 6), [4, 10), [8, 14)) and
+    in two: frames [0, 10) withholding a latent tail of 2 (8 frames out,
+    two windows) and frames [8, 14) at frame_offset=8 from the carry (one
+    window), so each call's windows are the single pass's and the JAX
+    package's first call emits 8 frames. The carried accumulation gives
+    the single pass's blended latents bitwise, the chunked frames are
+    within 1 of the single pass's, and the chunked run matches the JAX
+    package's (its carry within 1e-5 of max|JAX|)."""
+    params = shared_one_level[0]
+    T = 14
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, 255, (T, H // 8, W // 8, 3), np.uint8)
+    frames = np.repeat(np.repeat(base, 8, 1), 8, 2)
+    masks = np.zeros((T, H, W), np.uint8)
+    masks[:, 16:32, 24:48] = 255
+    prior = np.repeat(np.repeat(
+        rng.integers(0, 255, (T, H // 16, W // 16, 3), np.uint8), 16, 1),
+        16, 2)
+    key = jax.random.PRNGKey(0)
+    noise = np.asarray(jax.vmap(lambda i: jax.random.normal(
+        jax.random.fold_in(key, i), (H // 8, W // 8, 4), jnp.float32))(
+        jnp.arange(T)))
+    first = dict(return_latent_tail=2)
+    calls = []
+    single = _run_port(params, noise, frames, masks, prior,
+                       latent_hook=calls.append, **ONE_LEVEL)
+    single_last = calls[-1]  # the last decode batch: frames 6..13, final
+    calls.clear()
+    out0, carry = _run_port(params, noise, frames[:10], masks[:10],
+                            prior[:10], call=first, latent_hook=calls.append,
+                            **ONE_LEVEL)
+    last0 = calls[-1]  # frames 0..7, final
+    calls.clear()
+    second = dict(frame_offset=8, latent_carry=carry)
+    out1 = _run_port(params, noise, frames[8:], masks[8:], prior[8:],
+                     call=second, latent_hook=calls.append, **ONE_LEVEL)
+    assert [c.shape[0] for c in calls] == [6] and single_last.shape[0] == 8
+    assert len(out0) == 8 and len(out1) == 6
+    assert torch.equal(torch.cat([last0[6:], calls[0]]), single_last)
+    chunked = np.stack(out0 + out1)
+    assert np.abs(chunked.astype(int) - np.stack(single)).max() <= 1
+
+    ref0, ref_carry = _run_jax(params, frames[:10], masks[:10], prior[:10],
+                               call=first, **ONE_LEVEL)
+    ref1 = _run_jax(params, frames[8:], masks[8:], prior[8:],
+                    call=dict(second, latent_carry=ref_carry), **ONE_LEVEL)
+    for got, want in zip(carry, ref_carry):
+        want = np.asarray(want)
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert_matches_jax(out0 + out1, ref0 + ref1, frames, masks)
 
 
 @pytest.mark.parametrize("n,clip,ov", [(12, 6, 2), (22, 22, 6), (5, 22, 6),

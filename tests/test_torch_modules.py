@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from videovanish_tpu.models.diffueraser import blocks as jb
 from videovanish_tpu.models.diffueraser import scheduler as jsched
 from videovanish_tpu.models.diffueraser import temporal as jt

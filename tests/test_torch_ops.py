@@ -8,6 +8,7 @@ import pytest
 import scipy.ndimage
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from videovanish_tpu.ops.composite import feathered_composite as j_composite
 from videovanish_tpu.ops.edt import feather_alpha as j_feather
 from videovanish_tpu.ops.groupnorm import group_norm as j_gn

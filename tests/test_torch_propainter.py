@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from videovanish_tpu.core.convert import (
     FLOWCOMP_RULES, PROPAINTER_RULES, RAFT_RULES, convert_state_dict,
 )

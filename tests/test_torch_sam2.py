@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from videovanish_tpu.config import tiny_config as j_tiny
 from videovanish_tpu.core.convert import (
     SAM2_RULES, SAM2_SPECIALS, convert_state_dict, sam2_fb_preprocess,
@@ -31,13 +32,13 @@ from videovanish_tpu.ops import colorspace as jcolor
 from videovanish_tpu.ops import resize as jresize
 from videovanish_tpu.ops import rope as jrope
 from videovanish_tpu_torch.config import tiny_config
-from videovanish_tpu_torch.convert import jax_params_to_state_dict
+from videovanish_tpu_torch.convert import (
+    jax_params_to_state_dict, published_state_dict,
+)
 from videovanish_tpu_torch.models.sam2 import decoder as pdec
 from videovanish_tpu_torch.models.sam2 import hiera as phiera
 from videovanish_tpu_torch.models.sam2.neck import sine_pos_embed_2d
-from videovanish_tpu_torch.models.sam2.predictor import (
-    Sam2VideoPredictor, drop_unused_checkpoint_keys,
-)
+from videovanish_tpu_torch.models.sam2.predictor import Sam2VideoPredictor
 from videovanish_tpu_torch.ops import colorspace as pcolor
 from videovanish_tpu_torch.ops import resize as presize
 from videovanish_tpu_torch.ops import rope as prope
@@ -111,7 +112,7 @@ def test_published_file_loads_without_its_unused_keys(tmp_path):
              torch.zeros(4, 1, 2, 2),
              "mask_downsample.weight": torch.zeros(1, 1, 4, 4),
              "no_mem_pos_enc": torch.zeros(1, 1, 64)}
-    assert drop_unused_checkpoint_keys({**sd, **extra}).keys() == sd.keys()
+    assert published_state_dict({**sd, **extra}, "sam2").keys() == sd.keys()
     path = tmp_path / "sam2.pt"
     torch.save({"model": {**sd, **extra}}, path)
     pred = build_sam2_video_predictor(ckpt_path=str(path), device="cpu",

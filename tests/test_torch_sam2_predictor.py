@@ -17,6 +17,7 @@ import numpy as np
 
 import videovanish_tpu.pipeline.masker as jmasker
 from test_torch_sam2 import CFG, JCFG, weights
+from torch_threads import one_torch_thread  # noqa: F401
 from videovanish_tpu.models.sam2.predictor import (
     Sam2VideoPredictor as JPredictor,
 )

@@ -3,8 +3,9 @@ settings.
 
 A copy of the matching dataclasses of videovanish_tpu/config.py with the
 same defaults (the port keeps its own copy and imports nothing of the JAX
-package). Widths are the published SAM2.1 Hiera-L, ProPainter and SD1.5
-ones; `tiny_config` is the CPU-runnable smoke size.
+package), except that the checkpoint paths name torch files in place of
+orbax directories. Widths are the published SAM2.1 Hiera-L, ProPainter and
+SD1.5 ones; `tiny_config` is the CPU-runnable smoke size.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from dataclasses import dataclass, field
 class Sam2Config:
     """Hiera-L SAM2.1 video predictor (the published
     sam2.1_hiera_large.pt architecture)."""
-    checkpoint: str = "checkpoints/sam2.1_hiera_large.orbax"
+    checkpoint: str = "checkpoints/sam2.1_hiera_large.pt"  # as published
     image_size: int = 1024
     # Hiera-L stages
     hiera_embed_dim: int = 144
@@ -45,9 +46,10 @@ class Sam2Config:
 class ProPainterConfig:
     """Flow-guided inpainting prior: RAFT, recurrent flow completion and the
     InpaintGenerator at the published checkpoints' widths."""
-    checkpoint: str = "checkpoints/propainter.orbax"  # InpaintGenerator
-    raft_checkpoint: str = "checkpoints/raft_things.orbax"
-    flowcomp_checkpoint: str = "checkpoints/recurrent_flow_completion.orbax"
+    # the three published files as they ship
+    checkpoint: str = "checkpoints/ProPainter.pth"  # InpaintGenerator
+    raft_checkpoint: str = "checkpoints/raft-things.pth"
+    flowcomp_checkpoint: str = "checkpoints/recurrent_flow_completion.pth"
     ref_stride: int = 10
     neighbor_length: int = 10
     subvideo_length: int = 50
@@ -70,8 +72,11 @@ class ProPainterConfig:
 @dataclass(frozen=True)
 class DiffuEraserConfig:
     """BrushNet-conditioned SD1.5 UNet + temporal attention + PCM 2-step."""
-    checkpoint: str = "checkpoints/diffueraser.orbax"
-    vae_checkpoint: str = "checkpoints/sd_vae_ft_mse.orbax"
+    # {vae, unet, brushnet, null_text_emb}, written by
+    # `python -m videovanish_tpu_torch.cli.convert --assemble diffueraser`
+    checkpoint: str = "checkpoints/diffueraser.pt"
+    # read only without `checkpoint`: sd-vae-ft-mse as published or converted
+    vae_checkpoint: str = "checkpoints/sd_vae_ft_mse.safetensors"
     ckpt: str = "2-Step"  # PCM phased-consistency 2-step LoRA schedule
     num_inference_steps: int = 2
     guidance_scale: float = 0.0

@@ -1,14 +1,20 @@
-"""Weights from the JAX package's parameter trees into the port.
+"""Weights into the port: published torch files, LoRA merges, and the JAX
+package's parameter trees.
 
-The port's modules use the diffusers and ProPainter checkpoint key names
-and shapes, so a published state dict loads with `load_state_dict`. Parameters held as JAX
+The port's modules use the diffusers, transformers, ProPainter and SAM2
+checkpoint key names and shapes, so a published state dict loads with
+`load_state_dict` after `published_state_dict`'s few fixes (the legacy
+VAE attention names, the `module.` prefix of ProPainter's files, and the
+keys the port holds nothing for). `parse_lora_state` and `merge_lora` fold
+a LoRA file (the PCM "2-Step" distillation) into the UNet's weights, as
+videovanish_tpu/core/convert.py does. Parameters held as JAX
 (flax) trees -- nested dicts of numpy arrays, as videovanish_tpu's
 `core/convert.convert_state_dict` produces them from those checkpoints --
 come across with `jax_params_to_state_dict`, which inverts that
 conversion: the name rules (VAE_RULES, UNET_RULES, UNET_SPECIALS,
-RAFT_RULES, FLOWCOMP_RULES, PROPAINTER_RULES; SAM2_RULES, SAM2_SPECIALS and
-sam2_fb_preprocess for "sam2", see `_sam2_state_dict`) and the leaf
-transforms
+RAFT_RULES, FLOWCOMP_RULES, PROPAINTER_RULES, CLIP_RULES, CLIP_SPECIAL;
+SAM2_RULES, SAM2_SPECIALS and sam2_fb_preprocess for "sam2", see
+`_sam2_state_dict`) and the leaf transforms
 
   conv kernel   (kh, kw, I, O) -> (O, I, kh, kw), grouped and depthwise
                                   kernels (kh, kw, I/g, O) alike
@@ -16,6 +22,7 @@ transforms
   dense kernel  (I, O)         -> (O, I); (O, I, 1, 1) for the spatial
                                   transformers' proj_in / proj_out
   norm scale                   -> weight
+  embedding table (V, C)       -> weight, as it is
   running_mean / running_var   -> kept (frozen batch norms)
 
 This module keeps its own copy of those rules: the port imports nothing of
@@ -80,10 +87,18 @@ _GENERATOR_NAME_RULES = _PROP_STEP_RULES + [
     (r"\.fc1_0\b", ".fc1.0"),
     (r"\.fc2_1\b", ".fc2.1"),
 ]
+# CLIP's text tower (transformers' CLIPTextModel names); the position
+# table is a bare leaf of the tree
+_CLIP_NAME_RULES = [
+    (r"^layers_(\d+)\b", r"text_model.encoder.layers.\1"),
+    (r"\.mlp_fc([12])$", r".mlp.fc\1"),
+    (r"^(token|position)_embedding$", r"text_model.embeddings.\1_embedding"),
+    (r"^final_layer_norm$", "text_model.final_layer_norm"),
+]
 _RULES = {"unet": _UNET_NAME_RULES, "brushnet": _BRUSHNET_NAME_RULES,
           "vae": _VAE_NAME_RULES, "raft": _RAFT_NAME_RULES,
           "flow_comp": _FLOWCOMP_NAME_RULES,
-          "generator": _GENERATOR_NAME_RULES}
+          "generator": _GENERATOR_NAME_RULES, "clip": _CLIP_NAME_RULES}
 # dense kernels that are 1x1 convs in the checkpoint (SD1.5's
 # use_linear_projection=False spatial transformers)
 _CONV1X1 = re.compile(r"\.attentions\.\d+\.proj_(in|out)$")
@@ -105,6 +120,130 @@ def rename_legacy_vae_keys(state: dict) -> dict:
         for pat, rep in _LEGACY_VAE:
             key = re.sub(pat, rep, key)
         out[key] = val
+    return out
+
+
+# published files -> the port's state dicts: ProPainter's three files
+# carry DataParallel's `module.` prefix; the keys below have no home in the
+# port (a position-id buffer, training-only heads, SAM2's mask-prompt path,
+# which the reference's clicks and boxes never use) and are dropped
+PUBLISHED_MODELS = ("vae", "unet", "brushnet", "clip", "raft",
+                    "flow_completion", "propainter", "sam2")
+_MODULE_PREFIX = ("raft", "flow_completion", "propainter")
+_DROPS = {
+    "clip": (r"^text_model\.embeddings\.position_ids$",),
+    "flow_completion": (r"^edgeDetector\.",),
+    "propainter": (r"^(discriminator|dis)\.",),
+    "sam2": (r"^sam_prompt_encoder\.mask_downscaling\.",
+             r"^mask_downsample\.", r"^no_mem_pos_enc$"),
+}
+
+
+def published_state_dict(state: dict, model: str) -> dict:
+    """A published (or already converted) state dict of `model`, one of
+    PUBLISHED_MODELS, under the port's keys: tensors kept as they are."""
+    if model not in PUBLISHED_MODELS:
+        raise ValueError(f"unknown model {model!r}; one of {PUBLISHED_MODELS}")
+    if model == "vae":
+        state = rename_legacy_vae_keys(state)
+    drops = _DROPS.get(model, ())
+    out = {}
+    for key, val in state.items():
+        if model in _MODULE_PREFIX:
+            key = re.sub(r"^module\.", "", key)
+        if not any(re.search(p, key) for p in drops):
+            out[key] = val
+    return out
+
+
+# LoRA factors by key suffix: peft and new diffusers (lora_A / lora_B), the
+# old diffusers attention processors (lora.down / lora.up), kohya
+# (lora_down / lora_up) with its per-module alpha
+_LORA_SUFFIXES = (
+    (".lora_A.default.weight", "down"), (".lora_B.default.weight", "up"),
+    (".lora_A.weight", "down"), (".lora_B.weight", "up"),
+    (".lora.down.weight", "down"), (".lora.up.weight", "up"),
+    (".lora_down.weight", "down"), (".lora_up.weight", "up"),
+    (".alpha", "alpha"),
+)
+
+
+def parse_lora_state(state: dict, component: str = "unet") -> dict:
+    """{base name: {"down", "up"[, "alpha"]}} of a LoRA state dict, for one
+    tower ("unet" or "text_encoder"): "unet." / "text_encoder." prefixes,
+    kohya's "lora_unet_" / "lora_te_", and a raw peft save's
+    "base_model.model." routed by its module path. Base names keep the
+    file's separators; merge_lora resolves them."""
+    out: dict = {}
+    for key, val in state.items():
+        for suf, role in _LORA_SUFFIXES:
+            if key.endswith(suf):
+                base = key[:-len(suf)]
+                break
+        else:
+            continue
+        if base.startswith("base_model.model."):
+            base = base[len("base_model.model."):]
+            tower = "text_encoder" if base.startswith("text_model.") \
+                else "unet"
+            if component != tower:
+                continue
+        if base.startswith("lora_unet_"):
+            if component != "unet":
+                continue
+            base = base[len("lora_unet_"):]
+        elif re.match(r"^lora_te\d?_", base):
+            if component != "text_encoder":
+                continue
+            base = re.sub(r"^lora_te\d?_", "", base)
+        elif base.startswith("unet."):
+            if component != "unet":
+                continue
+            base = base[len("unet."):]
+        elif base.startswith("text_encoder."):
+            if component != "text_encoder":
+                continue
+            base = base[len("text_encoder."):]
+        val = torch.as_tensor(val)
+        out.setdefault(base, {})[role] = \
+            float(val) if role == "alpha" else val
+    for base, ent in out.items():
+        if "down" not in ent or "up" not in ent:
+            raise ValueError(f"LoRA entry {base!r} is missing its "
+                             f"{'up' if 'down' in ent else 'down'} factor")
+    return out
+
+
+def merge_lora(base_state: dict, lora: dict, scale: float = 1.0) -> dict:
+    """A new state dict with W + scale * (alpha / r) * up @ down folded into
+    every weight a LoRA entry names, computed in f32 and cast back to W's
+    dtype; 2-D factors onto a 1x1 conv, (r, I, kh, kw) down factors onto a
+    kxk conv. Names match underscore-insensitively (kohya flattens them).
+    An entry that matches no weight raises."""
+    flat = {k[:-len(".weight")].replace(".", "_"): k
+            for k in base_state if k.endswith(".weight")}
+    misses = [n for n in lora if n.replace(".", "_") not in flat]
+    if misses:
+        raise ValueError(f"{len(misses)} LoRA entries matched no base weight "
+                         f"(first: {misses[:5]})")
+    out = dict(base_state)
+    for name, ent in lora.items():
+        k = flat[name.replace(".", "_")]
+        w = out[k]
+        down, up = ent["down"].float(), ent["up"].float()
+        r = down.shape[0]
+        if up.dim() == 4 and tuple(up.shape[2:]) != (1, 1):
+            raise ValueError(f"LoRA {name!r}: up factor with spatial extent "
+                             f"{tuple(up.shape)} is not supported")
+        delta = (up.reshape(up.shape[0], -1) @ down.reshape(r, -1)).reshape(
+            (up.shape[0],) + tuple(down.shape[1:]))
+        delta = delta * (scale * ent.get("alpha", float(r)) / r)
+        if delta.shape != w.shape:
+            if delta.numel() != w.numel():
+                raise ValueError(f"LoRA {name!r}: delta {tuple(delta.shape)}"
+                                 f" does not match {k!r} {tuple(w.shape)}")
+            delta = delta.reshape(w.shape)
+        out[k] = (w.float() + delta.to(w.device)).to(w.dtype)
     return out
 
 
@@ -211,14 +350,16 @@ def _sam2_state_dict(params: dict) -> dict:
 
 def jax_params_to_state_dict(params: dict, model: str) -> dict:
     """JAX parameter tree (nested dicts of arrays) of the "vae", "unet",
-    "brushnet", "raft", "flow_comp", "generator" or "sam2" -> the port's
-    state dict {checkpoint key: f32 tensor}."""
+    "brushnet", "raft", "flow_comp", "generator", "clip" or "sam2" -> the
+    port's state dict {checkpoint key: f32 tensor}."""
     if model == "sam2":
         return _sam2_state_dict(params)
     rules = _RULES[model]
     out = {}
     for path, arr in _leaves(params):
         *mods, leaf = path
+        if not mods:  # CLIP's position table
+            mods, leaf = [leaf], "embedding"
         name = ".".join(mods)
         for pat, rep in rules:
             name = re.sub(pat, rep, name)
@@ -235,7 +376,7 @@ def jax_params_to_state_dict(params: dict, model: str) -> dict:
             else:
                 raise ValueError(f"kernel {'/'.join(path)} has shape {a.shape}")
             key = name + ".weight"
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             key = name + ".weight"
         elif leaf in ("bias", "running_mean", "running_var"):
             key = f"{name}.{leaf}"

@@ -27,8 +27,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from videovanish_tpu_torch.checkpoint import maybe_load
 from videovanish_tpu_torch.config import DiffuEraserConfig, default_config
-from videovanish_tpu_torch.convert import jax_params_to_state_dict
+from videovanish_tpu_torch.convert import (
+    jax_params_to_state_dict, published_state_dict,
+)
 from videovanish_tpu_torch.models.diffueraser.blocks import (
     AttentionCache, cast_for_inference, init_random_,
 )
@@ -89,6 +92,26 @@ def frame_noise(seed: int) -> NoiseProvider:
     return provider
 
 
+CHECKPOINT_PARTS = ("vae", "unet", "brushnet", "null_text_emb")
+
+
+def load_checkpoint(cfg: DiffuEraserConfig) -> Optional[dict]:
+    """DiffuEraser's weights from the config's files, as the JAX package
+    reads them: the assembled checkpoint ({vae, unet, brushnet,
+    null_text_emb}, written by `cli/convert.py --assemble diffueraser`),
+    else the VAE alone from `vae_checkpoint` (the published file or a
+    converted one), else None. A file that exists and does not load
+    raises."""
+    tree = maybe_load(cfg.checkpoint)
+    if tree is not None:
+        if set(tree) != set(CHECKPOINT_PARTS):
+            raise ValueError(f"{cfg.checkpoint}: holds {sorted(tree)}, "
+                             f"expected {sorted(CHECKPOINT_PARTS)}")
+        return tree
+    vae = maybe_load(cfg.vae_checkpoint)
+    return None if vae is None else {"vae": published_state_dict(vae, "vae")}
+
+
 def _null_prog(*_a, **_k):
     return None
 
@@ -104,9 +127,11 @@ def stack_frames(xs, device) -> torch.Tensor:
 class DiffuEraser:
     """SD1.5 + BrushNet + temporal attention + PCM few-step sampler.
 
-    params: None (seeded random weights at PyTorch's default scale), or a
-    dict with "vae", "unet", "brushnet" and "null_text_emb", the first
-    three either JAX parameter trees (numpy) or the port's state dicts.
+    params: a dict with any of "vae", "unet", "brushnet" (each a JAX
+    parameter tree of numpy arrays or the port's state dict) and
+    "null_text_emb"; what it lacks (all of it for None) takes seeded random
+    weights at PyTorch's default scale. `load_checkpoint` reads it from the
+    config's files.
     noise: the noise provider (default `frame_noise(seed)`).
     """
 
@@ -144,22 +169,29 @@ class DiffuEraser:
                    "brushnet": self.brushnet}
         for m in modules.values():
             m.to_empty(device=self.device)
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            for m in modules.values():
+        params = params or {}
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for name, m in modules.items():
+            sd = params.get(name)
+            if sd is None:
                 init_random_(m, gen)
+                continue
+            if any(isinstance(v, dict) for v in sd.values()):
+                sd = jax_params_to_state_dict(sd, name)
+            m.load_state_dict(sd)
+        emb = params.get("null_text_emb")
+        if emb is None:
             self.null_text_emb = torch.randn(
                 (77, cfg.cross_attention_dim), generator=gen,
                 device=self.device) * 0.02
         else:
-            for name, m in modules.items():
-                sd = params[name]
-                if any(isinstance(v, dict) for v in sd.values()):
-                    sd = jax_params_to_state_dict(sd, name)
-                m.load_state_dict(sd)
             self.null_text_emb = torch.as_tensor(
-                np.asarray(params["null_text_emb"]), dtype=torch.float32,
-                device=self.device)
+                emb if isinstance(emb, torch.Tensor) else np.asarray(emb),
+                dtype=torch.float32, device=self.device)
+            if self.null_text_emb.shape != (77, cfg.cross_attention_dim):
+                raise ValueError(
+                    f"null_text_emb {tuple(self.null_text_emb.shape)}, "
+                    f"expected (77, {cfg.cross_attention_dim})")
         for m in modules.values():
             cast_for_inference(m, self.dtype).eval().requires_grad_(False)
 

@@ -31,8 +31,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from videovanish_tpu_torch.checkpoint import maybe_load
 from videovanish_tpu_torch.config import ProPainterConfig
-from videovanish_tpu_torch.convert import jax_params_to_state_dict
+from videovanish_tpu_torch.convert import (
+    jax_params_to_state_dict, published_state_dict,
+)
 from videovanish_tpu_torch.models.diffueraser.model import stack_frames
 from videovanish_tpu_torch.models.propainter.deform import (
     SecondOrderDeformableAlignment,
@@ -73,6 +76,21 @@ def _init_random_(module: nn.Module, gen: torch.Generator) -> None:
             m.reset_parameters()
 
 
+def load_checkpoints(cfg: ProPainterConfig) -> dict:
+    """The weights of the config's three files (published or converted):
+    {"raft", "flow_comp", "generator"} for those that exist. A file that
+    exists and does not load raises."""
+    out = {}
+    for name, path, model in (
+            ("raft", cfg.raft_checkpoint, "raft"),
+            ("flow_comp", cfg.flowcomp_checkpoint, "flow_completion"),
+            ("generator", cfg.checkpoint, "propainter")):
+        state = maybe_load(path)
+        if state is not None:
+            out[name] = published_state_dict(state, model)
+    return out
+
+
 def window_plan(T: int, neighbor_length: int, ref_stride: int):
     """(NL, [(start, ref frame ids), ...]) of one chunk: windows of
     NL = min(T, neighbor + 1) frames at stride neighbor // 2, the last
@@ -87,10 +105,11 @@ def window_plan(T: int, neighbor_length: int, ref_stride: int):
 
 
 class Propainter:
-    """params: None (seeded random weights), or a dict with "raft",
-    "flow_comp" and "generator", each a JAX parameter tree (numpy) or the
-    port's state dict. compute_dtype: None gives bf16 on CUDA and f32 on
-    the CPU. `stage_hook`, if set, is called as each stage of a chunk is
+    """params: a dict with any of "raft", "flow_comp" and "generator", each
+    a JAX parameter tree (numpy) or the port's state dict; what it lacks
+    (all of it for None) takes seeded random weights. `load_checkpoints`
+    reads it from the config's files. compute_dtype: None gives bf16 on
+    CUDA and f32 on the CPU. `stage_hook`, if set, is called as each stage of a chunk is
     enqueued, with its name and outputs: ("raft", flows_f, flows_b),
     ("flow_completion", completed_f, completed_b), ("propagation",
     propagated frames, updated masks), ("generator", composited chunk)."""
@@ -113,16 +132,16 @@ class Propainter:
                 cfg.ffn_channels)
         modules = {"raft": self.raft, "flow_comp": self.flow_comp,
                    "generator": self.generator}
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            for m in modules.values():
+        params = params or {}
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for name, m in modules.items():
+            sd = params.get(name)
+            if sd is None:
                 _init_random_(m, gen)
-        else:
-            for name, m in modules.items():
-                sd = params[name]
-                if any(isinstance(v, dict) for v in sd.values()):
-                    sd = jax_params_to_state_dict(sd, name)
-                m.load_state_dict(sd)
+                continue
+            if any(isinstance(v, dict) for v in sd.values()):
+                sd = jax_params_to_state_dict(sd, name)
+            m.load_state_dict(sd)
         for m in modules.values():
             for sub in m.modules():
                 if isinstance(sub, _CONVS):

@@ -28,14 +28,15 @@ logits and memory bank; on the CPU everything is f32.
 """
 from __future__ import annotations
 
-import re
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from videovanish_tpu_torch.checkpoint import load_torch_state
 from videovanish_tpu_torch.config import Sam2Config
+from videovanish_tpu_torch.convert import published_state_dict
 from videovanish_tpu_torch.models.sam2.decoder import MaskDecoder
 from videovanish_tpu_torch.models.sam2.hiera import Hiera, Mlp
 from videovanish_tpu_torch.models.sam2.memory import (
@@ -54,12 +55,6 @@ NO_OBJ_SCORE = -1024.0
 
 # frames encoded per batch during propagation
 ENCODE_CHUNK = 8
-
-# keys of the published checkpoint with no module here: the mask-prompt
-# path (the reference prompts with clicks and boxes only) and a position
-# buffer SAM2.1 does not use
-UNUSED_CHECKPOINT_KEYS = (r"^sam_prompt_encoder\.mask_downscaling\.",
-                          r"^mask_downsample\.", r"^no_mem_pos_enc$")
 
 _LOW_PRECISION = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)
 
@@ -118,12 +113,6 @@ def _init_random_(model: Sam2Model, gen: torch.Generator) -> None:
     for p in (model.no_mem_embed, model.no_obj_ptr,
               model.no_obj_embed_spatial):
         p.zero_()
-
-
-def drop_unused_checkpoint_keys(state: dict) -> dict:
-    """The published state dict without UNUSED_CHECKPOINT_KEYS."""
-    return {k: v for k, v in state.items()
-            if not any(re.search(p, k) for p in UNUSED_CHECKPOINT_KEYS)}
 
 
 class _BankMeta:
@@ -216,8 +205,8 @@ class _BankMeta:
 
 class Sam2VideoPredictor:
     """params: None (seeded random weights) or the published state dict
-    (checkpoint keys, UNUSED_CHECKPOINT_KEYS allowed; a JAX parameter tree
-    goes through `jax_params_to_state_dict(tree, "sam2")` first). The
+    (checkpoint keys, its unused mask-prompt keys allowed; a JAX parameter
+    tree goes through `jax_params_to_state_dict(tree, "sam2")` first). The
     networks run in bf16 on CUDA and in f32 on the CPU.
     `stage_hook`, if set, is called with a stage name and its outputs as
     each stage is enqueued: ("encode", f4, f8, f16) per encoded batch,
@@ -238,8 +227,9 @@ class Sam2VideoPredictor:
                           torch.Generator(device=self.device).manual_seed(seed))
         else:
             self.model.load_state_dict(
-                {k: torch.as_tensor(np.asarray(v)) for k, v in
-                 drop_unused_checkpoint_keys(params).items()})
+                {k: v if isinstance(v, torch.Tensor)
+                 else torch.as_tensor(np.asarray(v)) for k, v in
+                 published_state_dict(params, "sam2").items()})
         # the JAX package keeps the prompt encoder and the pointer's
         # temporal projection in f32
         for name, mod in self.model.named_modules():
@@ -588,15 +578,13 @@ def build_sam2_video_predictor(config_file=None, ckpt_path=None, device=None,
     """The reference's factory `build_sam2_video_predictor(model_cfg,
     checkpoint, device=...)`. config_file is accepted for its signature
     (the architecture comes from `config`); ckpt_path, if given, is a
-    published SAM2.1 checkpoint (.pt) loaded with load_state_dict, else
+    published SAM2.1 checkpoint (the fb .pt, or the same state dict as
+    .safetensors) loaded with load_state_dict, else
     the weights are seeded random; device None means "cuda". The mask
     decoder's 2x2 transposed convolutions reproduce the JAX package's, whose
     converter carries the published kernels over unflipped: with published
     weights the upsampling is mirrored against the original PyTorch model
     until both packages are fixed (ROADMAP, Queue 3)."""
-    params = None
-    if ckpt_path is not None:
-        obj = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-        params = obj.get("model", obj)
+    params = None if ckpt_path is None else load_torch_state(ckpt_path)
     return Sam2VideoPredictor(config=config, params=params,
                               device=device or "cuda", **kwargs)

@@ -7,7 +7,8 @@ runs on the device: binarize + dilate the masks, the ProPainter prior
 the prior stays on the device at its internal resolution, and only the
 finished frames come back to the host.
 
-The models are lazy singletons, as in the reference.
+The models are lazy singletons, as in the reference, built with the
+weights of the config's checkpoint files where they exist.
 """
 from __future__ import annotations
 
@@ -18,7 +19,12 @@ from videovanish_tpu_torch.config import default_config
 from videovanish_tpu_torch.models.diffueraser.model import (
     DiffuEraser, stack_frames,
 )
-from videovanish_tpu_torch.models.propainter.model import Propainter
+from videovanish_tpu_torch.models.diffueraser.model import (
+    load_checkpoint as load_diffueraser_checkpoint,
+)
+from videovanish_tpu_torch.models.propainter.model import (
+    Propainter, load_checkpoints as load_propainter_checkpoints,
+)
 from videovanish_tpu_torch.ops.composite import feathered_composite
 from videovanish_tpu_torch.ops.morphology import binarize_and_dilate
 
@@ -47,24 +53,31 @@ def set_config(cfg) -> None:
 
 
 def get_model(ckpt: str = "2-Step", device="cuda"):
-    """The DiffuEraser singleton for `ckpt` on `device`, built on first use.
-    No checkpoint is loaded yet: the weights are seeded random."""
+    """The DiffuEraser singleton for `ckpt` on `device`, built on first use
+    with the weights of the config's checkpoint files (`load_checkpoint`);
+    seeded random where a file does not exist."""
     global video_inpainting_sd, last_ckpt
     if (video_inpainting_sd is None or last_ckpt != ckpt
             or video_inpainting_sd.device != torch.device(device)):
+        video_inpainting_sd = None  # the old model's memory goes first
+        cfg = _get_config().diffueraser
         video_inpainting_sd = DiffuEraser(
-            config=_get_config().diffueraser, ckpt=ckpt, device=device)
+            config=cfg, ckpt=ckpt, device=device,
+            params=load_diffueraser_checkpoint(cfg))
         last_ckpt = ckpt
     return video_inpainting_sd
 
 
 def get_propainter(device="cuda"):
-    """The Propainter singleton on `device`, built on first use. No
-    checkpoint is loaded yet: the weights are seeded random."""
+    """The Propainter singleton on `device`, built on first use with the
+    weights of the config's three checkpoint files (`load_checkpoints`);
+    seeded random where a file does not exist."""
     global propainter
     if propainter is None or propainter.device != torch.device(device):
-        propainter = Propainter(config=_get_config().propainter,
-                                device=device)
+        propainter = None
+        cfg = _get_config().propainter
+        propainter = Propainter(config=cfg, device=device,
+                                params=load_propainter_checkpoints(cfg))
     return propainter
 
 

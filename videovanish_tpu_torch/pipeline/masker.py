@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from videovanish_tpu_torch.checkpoint import checkpoint_present
 from videovanish_tpu_torch.pipeline.colors import render_colored_masks
 
 predictor = None  # built at first use, like the reference's global
@@ -24,15 +25,20 @@ def _null_prog(*_a, **_k):
 
 def _get_predictor(device=None):
     """The module's predictor for the installed config (pipeline.infill's)
-    on `device`, built on first use and again when either changes."""
+    on `device`, built on first use and again when either changes, with
+    the weights of the config's checkpoint file (seeded random when it
+    does not exist)."""
     global predictor, _predictor_key
     from videovanish_tpu_torch.models.sam2 import build_sam2_video_predictor
     from videovanish_tpu_torch.pipeline.infill import _get_config
     cfg = _get_config().sam2
     key = (cfg, str(device or "cuda"))
     if predictor is None or key != _predictor_key:
-        predictor = build_sam2_video_predictor(config=cfg,
-                                               device=device or "cuda")
+        predictor = None  # the old predictor's memory goes first
+        predictor = build_sam2_video_predictor(
+            config=cfg, device=device or "cuda",
+            ckpt_path=cfg.checkpoint if checkpoint_present(cfg.checkpoint)
+            else None)
         _predictor_key = key
     return predictor
 
