@@ -47,7 +47,23 @@
    frames per second of propagation, the stage split, peak memory, and the
    bf16 logits' drift from the same weights in f32 (run on the CPU) on the
    prompt frame (a record, not a gate);
-7. weights: writes a synthetic file set in the published layouts to
+7. files and CLIs, at the default config: writes an 88-frame 1280x720
+   color video (the synthetic scene) and its mask video with the port's
+   writer (FFV1 through OpenCV's FFmpeg; prints the codec found) and
+   reads both back (bitwise, fps and probe_video equal); runs the
+   sam2_masker CLI on the first 24 frames (its file equal to
+   run_sam2_on_frames bitwise); the diffuerase CLI with --chunked on (two
+   chunks, (0, 48) and (40, 88)) and with --chunked off (pixels outside
+   the feathered mask equal to the input in both; the chunked run
+   launches every kernel instance of request 0), and the compare CLI
+   between the two (the single pass has other windows and one prior for
+   all 88 frames, so inside the feathered mask the two are held to a PSNR
+   of 45 dB and a max |diff| of 32, not to 1 u8); a chunked job cancelled
+   after chunk 0 and resumed through the CLI (it computes chunk 1 only,
+   and its file equals the uninterrupted chunked file bitwise). Prints
+   each run's wall time, peak memory and VV_LOG stage split, seconds per
+   chunk and the prior's seconds inside each chunk; deletes the files;
+8. weights: writes a synthetic file set in the published layouts to
    build/weights_smoke (the keys and shapes of
    tests/fixtures/manifests/*.json, seeded values: the DiffuEraser UNet in
    f16, BrushNet in bf16, the legacy-named VAE, CLIP's text tower and a
@@ -67,12 +83,12 @@
    seconds (write, read, to the card; the CLI's read, merge and write),
    the CLIP encode ms, the requests' wall and peak memory; deletes the
    files;
-8. prints one {"kernels": [...]} line, the card line, and last
+9. prints one {"kernels": [...]} line, the card line, and last
    {"ok": true, "device": {...}}. A kernel row's `launches` counts the two
    requests with the prior passed in and the SAM2 request (each instance
    is launched by one of them; `launches_prior_request`,
-   `launches_sam2_request` and `launches_weights_phase` give the other
-   runs apart).
+   `launches_sam2_request`, `launches_files_phase` (the chunked CLI run)
+   and `launches_weights_phase` give the other runs apart).
 
 After the build it prints each kernel's `ptxas` lines (registers, spills,
 warnings) and, where the toolkit has `cuobjdump`, the count of HGMMA (wgmma)
@@ -541,14 +557,24 @@ def synthetic_request(T, H, W, seed):
     return frames, masks, prior
 
 
+def outside_feathered_mask(masks, cfg):
+    """Where the feathered alpha of the (T, H, W) masks, dilated as the
+    pipeline dilates them, is 0: (T, H, W) bool."""
+    import torch
+    from videovanish_tpu_torch.ops.edt import feather_alpha
+    from videovanish_tpu_torch.ops.morphology import binarize_and_dilate
+    m = binarize_and_dilate(torch.from_numpy(masks[..., None]).cuda(),
+                            cfg.infill.mask_dilation_iter)
+    return (feather_alpha(m > 0, float(cfg.infill.feather_px)) == 0) \
+        .cpu().numpy()
+
+
 def check_request(out, frames, masks, latents, cfg):
     """The output's shape, finite latents before decode, and pixels where
     the feathered alpha is 0 equal to the input; returns (latents, the mean
     |change| inside)."""
     import numpy as np
     import torch
-    from videovanish_tpu_torch.ops.edt import feather_alpha
-    from videovanish_tpu_torch.ops.morphology import binarize_and_dilate
 
     out = np.stack(out)
     if out.shape != frames.shape or out.dtype != np.uint8:
@@ -557,10 +583,7 @@ def check_request(out, frames, masks, latents, cfg):
     if not latents or not all(bool(torch.isfinite(z).all())
                               for z in latents):
         raise RuntimeError("non-finite latents before decode")
-    m = binarize_and_dilate(torch.from_numpy(masks[..., None]).cuda(),
-                            cfg.infill.mask_dilation_iter)
-    alpha = feather_alpha(m > 0, float(cfg.infill.feather_px)).cpu().numpy()
-    outside = alpha == 0
+    outside = outside_feathered_mask(masks, cfg)
     if not np.array_equal(out[outside], frames[outside]):
         raise RuntimeError("pixels outside the feathered mask changed")
     diff = np.abs(out.astype(np.int16) - frames.astype(np.int16))[~outside]
@@ -843,6 +866,9 @@ def run_sam2_request(seed: int = 0):
     print(f"[sam2] predictor built on the card in {build_s:.1f} s",
           flush=True)
 
+    # what the earlier phases leave on the card (the infill models): the
+    # request's peak counts it
+    resident = torch.cuda.memory_allocated() / 2 ** 30
     runs = []
     for _ in range(2):
         marks = {}
@@ -877,7 +903,8 @@ def run_sam2_request(seed: int = 0):
     print(f"[sam2] request 3: {T}x{H}x{W}, 2 objects: cold "
           f"{runs[0]['seconds']:.3f} s, warm {warm['seconds']:.3f} s, "
           f"propagation {T / warm['propagation_s']:.2f} frames/s, peak "
-          f"{warm['peak_gib']:.2f} GiB; mask cover obj 1 {cover[1]:.4f}, "
+          f"{warm['peak_gib']:.2f} GiB ({resident:.2f} GiB resident before "
+          f"it); mask cover obj 1 {cover[1]:.4f}, "
           f"obj 2 {cover[2]:.4f}", flush=True)
     print(f"[sam2] stages (synced, {split_total:.3f} s in all): "
           + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()),
@@ -917,8 +944,258 @@ def run_sam2_request(seed: int = 0):
         "seconds_cold": runs[0]["seconds"], "seconds": warm["seconds"],
         "propagation_fps": T / warm["propagation_s"],
         "stage_seconds": split, "stage_split_total_seconds": split_total,
-        "peak_gib": warm["peak_gib"], "mask_cover": cover,
+        "peak_gib": warm["peak_gib"], "resident_before_gib": resident,
+        "mask_cover": cover,
         "bf16_logit_drift": drift}
+
+
+FPS = 24.0
+# the files phase's limits on the chunked file against the single pass,
+# inside the feathered mask (tests/test_torch_infill.py's PSNR bound)
+PSNR_INSIDE_MIN = 45.0
+MAX_ABS_INSIDE = 32
+
+
+def stage_split(stages) -> dict:
+    """{stage: {"count", "seconds"}} of collect_stages records."""
+    out = {}
+    for name, secs, _ in stages:
+        rec = out.setdefault(name, {"count": 0, "seconds": 0.0})
+        rec["count"] += 1
+        rec["seconds"] += secs
+    return out
+
+
+def run_files_phase(launches_0, seed: int = 0):
+    """Files in, files out, through the port's CLIs at the default config:
+    an 88-frame 1280x720 color video and its mask video written by the
+    port's writer and read back; the sam2_masker CLI on the first 24
+    frames; the diffuerase CLI chunked (two chunks, (0, 48) and (40, 88))
+    and in one pass; the compare CLI between the two; a chunked job
+    cancelled after chunk 0 and resumed through the CLI. Returns (launch
+    counts of the chunked run, report). The files are deleted at the
+    end."""
+    import contextlib
+    import importlib.util
+    import io as stdio
+
+    import numpy as np
+    import torch
+    from videovanish_tpu_torch.cli import compare, diffuerase, sam2_masker
+    from videovanish_tpu_torch.config import default_config
+    from videovanish_tpu_torch.core.prog import CancelledError
+    from videovanish_tpu_torch.ops import attention as A
+    from videovanish_tpu_torch.pipeline import infill, masker
+    from videovanish_tpu_torch.pipeline.chunking import (
+        _chunk_plan, vanish_video_chunked,
+    )
+    from videovanish_tpu_torch.utils.observability import collect_stages
+    from videovanish_tpu_torch.video import io as vio
+
+    cfg = default_config()
+    if infill._get_config() != cfg or os.environ.get("VV_PLATFORM") == "cpu":
+        raise RuntimeError("the files phase runs the default config on the "
+                           "card")
+    t_phase = time.perf_counter()
+    tmp = os.path.join("build", "files_smoke")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        T, H, W = 88, 720, 1280
+        plan = _chunk_plan(T, cfg.chunking.chunk_frames,
+                           cfg.chunking.overlap_frames)
+        if plan != [(0, 48), (40, 88)]:
+            raise RuntimeError(f"chunk plan {plan}")
+        frames, masks, _ = synthetic_request(T, H, W, seed + 7)
+        masks3 = np.repeat(masks[..., None], 3, axis=-1)
+        color = os.path.join(tmp, "color.mkv")
+        mask = os.path.join(tmp, "mask.mkv")
+        probe = {"codec": vio.codec_info(),
+                 "ffmpeg_binary": shutil.which("ffmpeg"),
+                 "pyav": importlib.util.find_spec("av") is not None,
+                 "torchvision": importlib.util.find_spec("torchvision")
+                 is not None}
+        print(f"[files] codec: OpenCV {probe['codec']['cv2']}, "
+              + "; ".join(probe["codec"]["video_io"][:4])
+              + f"; ffmpeg binary {probe['ffmpeg_binary']}, PyAV "
+              f"{probe['pyav']}, torchvision {probe['torchvision']}",
+              flush=True)
+
+        # 1. the port's writer, read back
+        t0 = time.perf_counter()
+        vio.write_video_frames_to_path(color, list(frames), FPS, H, W)
+        vio.write_video_frames_to_path(mask, list(masks3), FPS, H, W)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_c, fps_c = vio.load_video_frames_from_path(color)
+        got_m, fps_m = vio.load_video_frames_from_path(mask)
+        read_s = time.perf_counter() - t0
+        if not (np.array_equal(np.stack(got_c), frames)
+                and np.array_equal(np.stack(got_m), masks3)):
+            raise RuntimeError("the written videos do not read back bitwise")
+        if (fps_c, fps_m) != (FPS, FPS) or \
+                {vio.probe_video(color), vio.probe_video(mask)} != \
+                {(T, FPS, H, W)}:
+            raise RuntimeError("fps or probe_video differs from what was "
+                               "written")
+        del got_c, got_m
+        mb = (os.path.getsize(color) + os.path.getsize(mask)) / 2 ** 20
+        print(f"[files] wrote 2 x {T}x{H}x{W} FFV1 ({mb:.1f} MiB) in "
+              f"{write_s:.2f} s, read back bitwise in {read_s:.2f} s",
+              flush=True)
+
+        # 2. sam2_masker on the first 24 frames
+        ann = sam2_annotations(H, W)
+        ann_path = os.path.join(tmp, "annotations.json")
+        with open(ann_path, "w") as f:
+            json.dump(ann, f)
+        sam_out = os.path.join(tmp, "sam2_mask.mkv")
+        t0 = time.perf_counter()
+        sam2_masker.main(["--color_video", color, "--annotations", ann_path,
+                          "--max_frames", "24", "--out", sam_out])
+        sam_s = time.perf_counter() - t0
+        want = masker.run_sam2_on_frames(list(frames[:24]), ann,
+                                         device="cuda")
+        got, _ = vio.load_video_frames_from_path(sam_out)
+        check_masks(got, 24, H, W)
+        if not np.array_equal(np.stack(got), np.stack(want)):
+            raise RuntimeError("the sam2_masker CLI's file differs from "
+                               "run_sam2_on_frames")
+        print(f"[files] sam2_masker CLI, 24 frames: {sam_s:.2f} s, file "
+              f"equal to run_sam2_on_frames", flush=True)
+
+        # 3. diffuerase chunked and in one pass
+        runs, stage_lists = {}, {}
+
+        def run_cli(name, chunked):
+            out = os.path.join(tmp, name + ".mkv")
+            stages = []
+            A.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with collect_stages(stages):
+                diffuerase.main(["--color_video", color, "--mask_video",
+                                 mask, "--out", out, "--chunked", chunked])
+            torch.cuda.synchronize()
+            runs[name] = {
+                "seconds": time.perf_counter() - t0,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "stage_split": stage_split(stages)}
+            stage_lists[name] = stages
+            got, fps = vio.load_video_frames_from_path(out)
+            if fps != FPS:
+                raise RuntimeError(f"{name}: fps {fps}")
+            return np.stack(got)
+
+        chunked = run_cli("chunked", "on")
+        counts = dict(A.LAUNCHES)
+        single = run_cli("single", "off")
+        missing = sorted(k for k, n in launches_0.items()
+                         if n and not counts.get(k))
+        if missing:
+            raise RuntimeError(f"kernel instances of the 720p request not "
+                               f"launched by the chunked CLI run: {missing}")
+        outside = outside_feathered_mask(masks, cfg)
+        for name, out in (("chunked", chunked), ("single", single)):
+            if out.shape != frames.shape or \
+                    not np.array_equal(out[outside], frames[outside]):
+                raise RuntimeError(f"{name}: pixels outside the feathered "
+                                   f"mask differ from the input")
+        # inside the feathered mask the chunks' windows and priors differ
+        # from the single pass's, so the two are not within 1 u8 there;
+        # held to the infill tests' PSNR bound and a max |diff| limit (an
+        # H100 run read 49.7 dB and 7)
+        diff = np.abs(chunked.astype(np.int16) - single)[~outside]
+        mse = float(np.mean(diff.astype(np.float64) ** 2))
+        vs_single = {"max_abs_inside": int(diff.max()),
+                     "share_within_1": float((diff <= 1).mean()),
+                     "psnr_inside": 10 * np.log10(255.0 ** 2 / mse)
+                     if mse else float("inf"),
+                     "psnr_inside_min": PSNR_INSIDE_MIN,
+                     "max_abs_inside_limit": MAX_ABS_INSIDE}
+        if vs_single["psnr_inside"] < PSNR_INSIDE_MIN or \
+                vs_single["max_abs_inside"] > MAX_ABS_INSIDE:
+            raise RuntimeError(f"chunked against single pass inside the "
+                               f"feathered mask: {vs_single}")
+        buf = stdio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = compare.main(["--a", os.path.join(tmp, "chunked.mkv"),
+                               "--b", os.path.join(tmp, "single.mkv")])
+        metrics = json.loads(buf.getvalue().splitlines()[-1])
+        if rc != 0 or metrics["frames"] != T:
+            raise RuntimeError(f"compare CLI: rc {rc}, {metrics}")
+        print(f"[files] compare chunked vs single pass: psnr "
+              f"{metrics['psnr']:.3f} dB (min {metrics['psnr_min']:.3f}), "
+              f"ssim {metrics['ssim']:.5f} (min {metrics['ssim_min']:.5f}); "
+              f"inside the feathered mask psnr "
+              f"{vs_single['psnr_inside']:.3f} dB (limit {PSNR_INSIDE_MIN}), "
+              f"max |diff| {vs_single['max_abs_inside']} (limit "
+              f"{MAX_ABS_INSIDE}), {vs_single['share_within_1']:.4f} within 1",
+              flush=True)
+
+        # 4. cancelled after chunk 0, resumed through the CLI
+        cancel = []
+
+        def prog(pct, status="", **_):
+            if status == f"[chunk 1/{len(plan)}] done":
+                cancel.append(True)
+
+        t0 = time.perf_counter()
+        cancelled = False
+        try:
+            vanish_video_chunked(
+                color, mask, os.path.join(tmp, "resumed.mkv"),
+                mask_dilation_iter=cfg.infill.mask_dilation_iter,
+                max_img_size=cfg.infill.max_img_size, prog=prog,
+                is_canceled=lambda: bool(cancel), device="cuda")
+        except CancelledError:
+            cancelled = True
+        if not cancelled:
+            raise RuntimeError("the job was not cancelled after chunk 0")
+        cancel_s = time.perf_counter() - t0
+        resumed = run_cli("resumed", "on")
+        done = [f["chunk"] for n, _, f in stage_lists["resumed"]
+                if n == "chunk"]
+        if done != [1]:
+            raise RuntimeError(f"the resumed job computed chunks {done}")
+        if not np.array_equal(resumed, chunked):
+            raise RuntimeError("the resumed file differs from the "
+                               "uninterrupted chunked file")
+
+        # 5. the record
+        chunk_stages = stage_lists["chunked"]
+        per_chunk = [secs for n, secs, _ in chunk_stages if n == "chunk"]
+        prior = [secs for n, secs, _ in chunk_stages
+                 if n == "propainter_prior"]
+        for name, r in runs.items():
+            print(f"[files] diffuerase CLI {name}: {r['seconds']:.2f} s, "
+                  f"peak {r['peak_gib']:.2f} GiB; stages "
+                  + ", ".join(f"{k} {v['seconds']:.3f} s/{v['count']}"
+                              for k, v in r["stage_split"].items()),
+                  flush=True)
+        print(f"[files] chunked: seconds per chunk "
+              + ", ".join(f"{t:.3f}" for t in per_chunk)
+              + "; the prior inside them (inline, no overlap) "
+              + ", ".join(f"{t:.3f}" for t in prior)
+              + f" s; cancelled run "
+              f"{cancel_s:.2f} s; resumed file equal to the chunked file "
+              f"bitwise", flush=True)
+        report = {"frames": [T, H, W], "chunks": plan, "codec_probe": probe,
+                  "write_s": write_s, "read_s": read_s,
+                  "sam2_cli_s": sam_s, "runs": runs,
+                  "seconds_per_chunk": per_chunk,
+                  "prior_s": prior,
+                  "cancelled_run_s": cancel_s, "resume_bitwise": True,
+                  "chunked_vs_single": {**vs_single, **{
+                      k: metrics[k] for k in ("psnr", "psnr_min", "ssim",
+                                              "ssim_min")}}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"[files] phase {report['phase_s']:.1f} s", flush=True)
+    return counts, report
 
 
 # the published weight files the weights phase writes: (manifest in
@@ -1344,6 +1621,7 @@ def main(argv=None) -> int:
     report.append(prior_report)
     counts_3, sam2_report = run_sam2_request(args.seed)
     report.append(sam2_report)
+    counts_5, files_report = run_files_phase(launches_0, args.seed)
     counts_4, weights_report = run_weights_phase(args.seed)
     for row in rows:
         # each instance is driven by the infill requests or by SAM2
@@ -1352,6 +1630,7 @@ def main(argv=None) -> int:
         row["launches_prior_request"] = counts_2.get(row["name"], 0)
         row["launches_sam2_request"] = counts_3.get(row["name"], 0)
         row["launches_weights_phase"] = counts_4.get(row["name"], 0)
+        row["launches_files_phase"] = counts_5.get(row["name"], 0)
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
@@ -1361,12 +1640,14 @@ def main(argv=None) -> int:
         raise RuntimeError(f"SAM2 kernel instances not launched by the SAM2 "
                            f"request: {sam2_missing}")
     unchecked = sorted((set(counts) | set(counts_2) | set(counts_3)
-                        | set(counts_4)) - {r["name"] for r in rows})
+                        | set(counts_4) | set(counts_5))
+                       - {r["name"] for r in rows})
     if unchecked:
         raise RuntimeError(f"main-path kernel instances without a "
                            f"kernel-phase check: {unchecked}")
     print(json.dumps({"kernels": rows, "main_path": report,
-                      "weights_phase": weights_report}))
+                      "weights_phase": weights_report,
+                      "files_phase": files_report}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

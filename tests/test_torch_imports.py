@@ -1,9 +1,11 @@
 """The port (videovanish_tpu_torch), chip_smoke.py and the port's profile
-scripts import nothing of JAX, nothing of the JAX package, and neither cv2
-nor the safetensors, regex and transformers packages (the port keeps its
-own .safetensors reader and pre-tokenizer and needs torch alone), checked
-on the source with `ast`; and chip_smoke.py refuses to run without a CUDA
-device."""
+scripts import nothing of JAX, nothing of the JAX package, and neither the
+safetensors, regex and transformers packages (the port keeps its own
+.safetensors reader and pre-tokenizer), checked on the source with `ast`.
+cv2, the JAX package's codec, is imported by the port's video files module
+alone, and only inside its functions: importing the pipelines leaves it
+unloaded, so the compute path needs torch alone. chip_smoke.py refuses to
+run without a CUDA device."""
 import ast
 import os
 import subprocess
@@ -13,15 +15,19 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "videovanish_tpu", "cv2", "safetensors",
+FORBIDDEN = ("jax", "jaxlib", "flax", "videovanish_tpu", "safetensors",
              "regex", "transformers")
+CODEC = "cv2"
+CODEC_MODULE = "videovanish_tpu_torch/video/io.py"
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  (ROOT / "videovanish_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py", "scripts/profile_port_infill.py",
-       "scripts/profile_port_sam2.py"]
+       "scripts/profile_port_sam2.py", "scripts/chunk_prior_ab.py",
+       "scripts/sam2_memory_probe.py"]
 
 
 def _imported(tree):
+    """Every module the source imports."""
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
@@ -35,12 +41,54 @@ def _imported(tree):
             yield str(node.args[0].value)
 
 
+def _imported_at_module_level(tree):
+    """The modules imported outside any function."""
+    inside = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            inside |= {id(n) for n in ast.walk(fn) if n is not fn}
+    for node in ast.walk(tree):
+        if id(node) in inside:
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom, ast.Call)):
+            yield from _imported(node)
+
+
+def _top(names):
+    return {m.split(".")[0] for m in names}
+
+
 @pytest.mark.parametrize("rel", SOURCES)
 def test_port_imports_no_jax(rel):
     tree = ast.parse((ROOT / rel).read_text(), filename=rel)
     bad = [m for m in _imported(tree)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{rel} imports {bad}"
+    if rel == CODEC_MODULE:
+        assert CODEC in _top(_imported(tree))
+        assert CODEC not in _top(_imported_at_module_level(tree)), \
+            f"{rel} imports {CODEC} at module level"
+    else:
+        assert CODEC not in _top(_imported(tree)), f"{rel} imports {CODEC}"
+
+
+def test_pipelines_load_without_the_codec():
+    """Importing the pipelines, the chunked pipeline and the CLIs leaves cv2
+    out of sys.modules."""
+    script = (
+        "import sys\n"
+        "import videovanish_tpu_torch.pipeline.infill\n"
+        "import videovanish_tpu_torch.pipeline.masker\n"
+        "import videovanish_tpu_torch.pipeline.chunking\n"
+        "import videovanish_tpu_torch.cli.diffuerase\n"
+        "import videovanish_tpu_torch.cli.sam2_masker\n"
+        "import videovanish_tpu_torch.cli.compare\n"
+        "print('cv2' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["False"]
 
 
 def test_port_package_found():

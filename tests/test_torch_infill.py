@@ -114,11 +114,14 @@ def _jax_diffueraser(params, dcfg):
 
 def _with_forward_args(model, forward_args):
     """The model with `forward_args` overriding those of the pipeline's
-    forward call (which passes guidance_scale=None and no prompt)."""
+    forward call (which passes guidance_scale=None, no prompt, and the
+    prior as its third positional argument)."""
     if forward_args:
         orig = type(model).forward
 
         def forward(*a, **k):
+            if "prior_frames" in forward_args:
+                a = a[:2] + a[3:]
             return orig(model, *a, **{**k, **forward_args})
         model.forward = forward
     return model
@@ -226,14 +229,16 @@ def test_pipeline_with_computed_prior_matches_jax(shared):
 
 def test_guidance_prompt_and_full_frame_paths_match_jax(shared_one_level):
     """The paths the other tests leave out: classifier-free guidance at
-    2.0, a prompt embedding in place of the null one, both together (into
-    DiffuEraser.forward, which run_infill_on_frames calls with neither),
-    and keep_unmasked_original=False (the whole decoded frame comes
-    back)."""
+    2.0, a prompt embedding in place of the null one, both together, no
+    prior at all (prior_frames=None: the masked input's latents seed the
+    holes) (into DiffuEraser.forward, which run_infill_on_frames calls
+    with none of these), and keep_unmasked_original=False (the whole
+    decoded frame comes back)."""
     prompt = (np.random.default_rng(21).standard_normal((77, 64)) * 0.1) \
         .astype(np.float32)
     for forward_args in ({"guidance_scale": 2.0}, {"prompt_embeds": prompt},
-                         {"guidance_scale": 2.0, "prompt_embeds": prompt}):
+                         {"guidance_scale": 2.0, "prompt_embeds": prompt},
+                         {"prior_frames": None}):
         check_pipeline_matches_jax(shared_one_level,
                                    forward_args=forward_args, **ONE_LEVEL)
     check_pipeline_matches_jax(shared_one_level,

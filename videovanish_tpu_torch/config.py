@@ -1,5 +1,5 @@
-"""Config tree of the port: the SAM2, ProPainter, DiffuEraser and infill
-settings.
+"""Config tree of the port: the SAM2, ProPainter, DiffuEraser, infill and
+chunking settings.
 
 A copy of the matching dataclasses of videovanish_tpu/config.py with the
 same defaults (the port keeps its own copy and imports nothing of the JAX
@@ -116,11 +116,21 @@ class InfillConfig:
 
 
 @dataclass(frozen=True)
+class ChunkingConfig:
+    """Chunked long-video runs (`pipeline/chunking.py`): chunks of
+    `chunk_frames` sharing `overlap_frames` with their neighbours, blended
+    in latent space (f32 accumulators)."""
+    chunk_frames: int = 48
+    overlap_frames: int = 8
+
+
+@dataclass(frozen=True)
 class VVConfig:
     sam2: Sam2Config = field(default_factory=Sam2Config)
     propainter: ProPainterConfig = field(default_factory=ProPainterConfig)
     diffueraser: DiffuEraserConfig = field(default_factory=DiffuEraserConfig)
     infill: InfillConfig = field(default_factory=InfillConfig)
+    chunking: ChunkingConfig = field(default_factory=ChunkingConfig)
 
 
 def default_config() -> VVConfig:
@@ -158,4 +168,5 @@ def tiny_config() -> VVConfig:
             memory_attention_d_model=64,
             max_obj_ptrs_in_encoder=4,
         ),
+        chunking=ChunkingConfig(chunk_frames=8, overlap_frames=2),
     )

@@ -17,11 +17,18 @@ On the card weights and activations are bf16; normalisation statistics,
 softmax, the scheduler and the blend accumulators stay f32. On the CPU
 everything is f32. Noise is a pure function of the global frame index, so
 overlapping windows and overlapping chunks of a long video agree.
+
+`forward` records the JAX package's stages (`utils/observability.py`):
+dn.upload_encode, dn.windows (the windows' denoise and blend) and
+dn.decode_fetch (the VAE decodes, which here run between the windows). They
+read the host clock and never synchronize the card (`synced` is 0), so
+device work still queued bills to whichever stage next waits for it.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -45,6 +52,9 @@ from videovanish_tpu_torch.ops.morphology import binary_dilation
 from videovanish_tpu_torch.ops.resize import (
     host_resize_bilinear_u8, host_resize_nearest_2d, plan_long_side,
     resize_nearest_2d,
+)
+from videovanish_tpu_torch.utils.observability import (
+    record_stage, stage_timer,
 )
 
 # (global frame indices, (h8, w8, C)) -> (T, h8, w8, C) noise
@@ -114,6 +124,16 @@ def load_checkpoint(cfg: DiffuEraserConfig) -> Optional[dict]:
 
 def _null_prog(*_a, **_k):
     return None
+
+
+def _host_bytes(xs, device) -> int:
+    """Bytes of `xs` (a tensor, an array or a list of them) not yet on
+    `device`."""
+    if isinstance(xs, torch.Tensor):
+        return 0 if xs.device == device else xs.numel() * xs.element_size()
+    if isinstance(xs, np.ndarray):
+        return xs.nbytes
+    return sum(_host_bytes(x, device) for x in xs)
 
 
 def stack_frames(xs, device) -> torch.Tensor:
@@ -304,6 +324,8 @@ class DiffuEraser:
         """
         prog = progress or _null_prog
         cfg, dev = self.cfg, self.device
+        bytes_up = _host_bytes(frames, dev) + _host_bytes(masks, dev) + (
+            0 if prior_frames is None else _host_bytes(prior_frames, dev))
         frames = stack_frames(frames, dev)
         masks = stack_frames(masks, dev)
         if masks.dim() == 4:
@@ -336,16 +358,20 @@ class DiffuEraser:
         fr_p, mk_p = padded(frames), padded(masks)
         pf_p = None if pf is None else padded(pf)
         lat_c, mlat_c, prior_c = [], [], []
-        for i in range(0, T + pad, chunk):
-            m = mk_p[i:i + chunk]
-            x = fr_p[i:i + chunk].float() / 255.0
-            lat_c.append(self._encode(x * (1.0 - m[..., None].float())))
-            mlat_c.append((resize_nearest_2d(m, h8, w8) > 0).float()[:, None])
-            if pf_p is not None:
-                prior_c.append(self._encode(pf_p[i:i + chunk].float() / 255.0))
-        masked_lat = torch.cat(lat_c)
-        m_lat = torch.cat(mlat_c)
-        prior_lat = torch.cat(prior_c) if prior_c else masked_lat
+        with stage_timer("dn.upload_encode", frames=T, wire="rgb",
+                         bytes_up=bytes_up):
+            for i in range(0, T + pad, chunk):
+                m = mk_p[i:i + chunk]
+                x = fr_p[i:i + chunk].float() / 255.0
+                lat_c.append(self._encode(x * (1.0 - m[..., None].float())))
+                mlat_c.append(
+                    (resize_nearest_2d(m, h8, w8) > 0).float()[:, None])
+                if pf_p is not None:
+                    prior_c.append(
+                        self._encode(pf_p[i:i + chunk].float() / 255.0))
+            masked_lat = torch.cat(lat_c)
+            m_lat = torch.cat(mlat_c)
+            prior_lat = torch.cat(prior_c) if prior_c else masked_lat
 
         noise = self.noise(range(frame_offset, frame_offset + T),
                            (h8, w8, cfg.sample_channels))
@@ -374,12 +400,14 @@ class DiffuEraser:
         if roi is not None:
             out[:] = frames[:T_out]  # out-of-ROI pixels = resized input
         decoded_upto = 0
+        decode_s, decodes = 0.0, 0
 
         def decode_final(upto):
             """Decode the finished frames [decoded_upto, upto) in batches of
             `chunk` (the last batch shifts back to stay full); frames of a
             withheld latent tail are never decoded."""
-            nonlocal decoded_upto
+            nonlocal decoded_upto, decode_s, decodes
+            t0 = time.perf_counter()
             upto = min(upto, T_out)
             while decoded_upto < upto:
                 i = decoded_upto
@@ -402,7 +430,10 @@ class DiffuEraser:
                     out[start:end, y0:y1, x0:x1] = \
                         u8[start - i:end - i, y0:y1, x0:x1]
                 decoded_upto = min(i + n, upto)
+                decodes += 1
+            decode_s += time.perf_counter() - t0
 
+        t_windows = time.perf_counter()
         for wi, (s, L) in enumerate(plan):
             prog(10 + 70 * wi / max(1, len(plan)),
                  f"denoising window {wi + 1}/{len(plan)}")
@@ -420,6 +451,13 @@ class DiffuEraser:
             acc[s:s + L] += bwt * z
             wsum[s:s + L] += bwt
             decode_final(plan[wi + 1][0] if wi + 1 < len(plan) else T)
+        record_stage("dn.windows",
+                     time.perf_counter() - t_windows - decode_s,
+                     windows=len(plan), synced=0)
+        record_stage("dn.decode_fetch", decode_s, frames=T_out, synced=0,
+                     fetch_bytes=0,
+                     dispatches=len(lat_c) + len(prior_c) + len(plan)
+                     + decodes)
         prog(100, "diffusion inpainting done")
         if return_latent_tail:
             return out, (acc[T_out:].permute(0, 2, 3, 1), wsum[T_out:])

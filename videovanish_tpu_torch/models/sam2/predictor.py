@@ -25,9 +25,16 @@ masks to cut dispatches and host-link bytes, which the port does not need.
 
 On the card the networks run in bf16 with f32 LayerNorms, softmax, mask
 logits and memory bank; on the CPU everything is f32.
+
+Propagation records the JAX package's stages per encode chunk
+(`utils/observability.py`): sam2.wire_prep (stacking and the I420
+conversion on the host), sam2.encode_dispatch, sam2.step_dispatch (the
+chunk's steps) and sam2.fetch (the masks to the host). They read the host
+clock, so device time bills to sam2.fetch, where the host waits.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -48,6 +55,7 @@ from videovanish_tpu_torch.ops.colorspace import (
     rgb_to_yuv420_host, yuv420_to_rgb01,
 )
 from videovanish_tpu_torch.ops.resize import resize_bilinear
+from videovanish_tpu_torch.utils.observability import record_stage
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -551,9 +559,17 @@ class Sam2VideoPredictor:
         no_labels = np.full((O, MAX_POINTS), -1, np.int32)
         for pos in range(0, len(idxs), ENCODE_CHUNK):
             sel = idxs[pos:pos + ENCODE_CHUNK]
+            t0 = time.perf_counter()
             batch = np.stack([np.asarray(frames[i]) for i in sel])
-            f4c, f8c, f16c = (self.encode_yuv(rgb_to_yuv420_host(batch))
-                              if use_yuv else self.encode_rgb(batch))
+            wire = rgb_to_yuv420_host(batch) if use_yuv else batch
+            t1 = time.perf_counter()
+            record_stage("sam2.wire_prep", t1 - t0, frames=len(sel),
+                         bytes=int(wire.nbytes))
+            f4c, f8c, f16c = (self.encode_yuv(wire) if use_yuv
+                              else self.encode_rgb(wire))
+            record_stage("sam2.encode_dispatch", time.perf_counter() - t1,
+                         frames=len(sel))
+            step_s = fetch_s = 0.0
             for j, t in enumerate(sel):
                 # occupancy before this frame writes, as one step at a time
                 is_cond = t in state["prompts"]
@@ -563,13 +579,20 @@ class Sam2VideoPredictor:
                     else (no_points, no_labels)
                 ws = meta.choose_slot(t, is_cond)
                 ps = meta.choose_ptr_slot(t, is_cond)
+                t2 = time.perf_counter()
                 logits = self.step(
                     f16c[j:j + 1], f4c[j:j + 1], f8c[j:j + 1], feats, ptrs,
                     valid, age, pvalid, tdiff, points, labels, ws, ps,
                     is_cond, H0, W0)
-                out = ((logits > 0).to(torch.uint8) if yield_binary
-                       else logits).cpu().numpy()
+                out = (logits > 0).to(torch.uint8) if yield_binary \
+                    else logits
+                t3 = time.perf_counter()
+                out = out.cpu().numpy()
+                step_s += t3 - t2
+                fetch_s += time.perf_counter() - t3
                 yield t, obj_ids, [out[i] for i in range(O)]
+            record_stage("sam2.step_dispatch", step_s, frames=len(sel))
+            record_stage("sam2.fetch", fetch_s, frames=len(sel))
 
 
 def build_sam2_video_predictor(config_file=None, ckpt_path=None, device=None,

@@ -8,7 +8,10 @@ the prior stays on the device at its internal resolution, and only the
 finished frames come back to the host.
 
 The models are lazy singletons, as in the reference, built with the
-weights of the config's checkpoint files where they exist.
+weights of the config's checkpoint files where they exist. Stages are
+timed as in the JAX package (`utils/observability.py`: mask_dilate,
+propainter_prior, diffueraser_denoise, rescale_composite), and
+VV_PROFILE_DIR traces a call.
 """
 from __future__ import annotations
 
@@ -27,6 +30,9 @@ from videovanish_tpu_torch.models.propainter.model import (
 )
 from videovanish_tpu_torch.ops.composite import feathered_composite
 from videovanish_tpu_torch.ops.morphology import binarize_and_dilate
+from videovanish_tpu_torch.utils.observability import (
+    maybe_profile, stage_timer,
+)
 
 # lazy model singletons
 video_inpainting_sd = None
@@ -85,20 +91,23 @@ def _prior(frames, dilated, prog, device):
     """The ProPainter prior of (T, H, W, 3) frames under (T, H, W) dilated
     masks: (T, h, w, 3) uint8 on the device at its internal resolution."""
     cfg = _get_config().propainter
-    return get_propainter(device).forward(
-        frames, dilated, ref_stride=cfg.ref_stride,
-        neighbor_length=cfg.neighbor_length,
-        subvideo_length=cfg.subvideo_length, mask_dilation=0,
-        progress=prog, return_device=True)
+    pp = get_propainter(device)
+    with stage_timer("propainter_prior", frames=int(frames.shape[0])):
+        return pp.forward(
+            frames, dilated, ref_stride=cfg.ref_stride,
+            neighbor_length=cfg.neighbor_length,
+            subvideo_length=cfg.subvideo_length, mask_dilation=0,
+            progress=prog, return_device=True)
 
 
 def dilate_masks(mask_frames, mask_dilation_iter: int, device="cuda"):
     """Binarize (any channel > 0) and dilate the mask stack on `device`;
     returns (T, H, W) uint8 in {0, 255}."""
-    masks = stack_frames(mask_frames, device)
-    if masks.dim() == 3:
-        masks = masks[..., None]
-    return binarize_and_dilate(masks, mask_dilation_iter)
+    with stage_timer("mask_dilate", frames=len(mask_frames)):
+        masks = stack_frames(mask_frames, device)
+        if masks.dim() == 3:
+            masks = masks[..., None]
+        return binarize_and_dilate(masks, mask_dilation_iter)
 
 
 def compute_prior(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
@@ -149,8 +158,9 @@ def run_infill_on_frames(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
         tier = _get_config().diffueraser.preview_img_size
         if tier:
             max_img_size = min(max_img_size, tier)
-    with torch.inference_mode():
+    with torch.inference_mode(), maybe_profile():
         frames = stack_frames(frames_rgb, device)
+        T = int(frames.shape[0])
         prog(5, "dilating frames")
         if dilated_masks is not None:
             dilated = stack_frames(dilated_masks, device)
@@ -163,16 +173,17 @@ def run_infill_on_frames(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
             prog(20, "running propainter prior")
             propainer_frames = _prior(frames, dilated, prog, device)
         prog(50, "running DiffuEraser")
-        inpainted = model.forward(
-            frames, dilated, propainer_frames, max_img_size=max_img_size,
-            mask_dilation_iter=0, guidance_scale=None, progress=prog,
-            # alpha is 0 beyond feather_px outside the dilated mask, so only
-            # the mask's bounding box (+ a feather-covering margin) of the
-            # model output is used
-            output_roi="auto" if keep_unmasked_original else None,
-            roi_margin=16 + int(np.ceil(feather_px)),
-            frame_offset=frame_offset, latent_carry=latent_carry,
-            return_latent_tail=return_latent_tail)
+        with stage_timer("diffueraser_denoise", frames=T):
+            inpainted = model.forward(
+                frames, dilated, propainer_frames, max_img_size=max_img_size,
+                mask_dilation_iter=0, guidance_scale=None, progress=prog,
+                # alpha is 0 beyond feather_px outside the dilated mask, so
+                # only the mask's bounding box (+ a feather-covering margin)
+                # of the model output is used
+                output_roi="auto" if keep_unmasked_original else None,
+                roi_margin=16 + int(np.ceil(feather_px)),
+                frame_offset=frame_offset, latent_carry=latent_carry,
+                return_latent_tail=return_latent_tail)
         carry = None
         if return_latent_tail:
             inpainted, carry = inpainted
@@ -181,10 +192,11 @@ def run_infill_on_frames(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
         if on_device_idle is not None:
             on_device_idle()
         prog(90, "resizing and merging finished frames")
-        out = feathered_composite(inpainted, frames, dilated,
-                                  float(feather_px),
-                                  keep_unmasked_original=keep_unmasked_original)
-        out_np = out.cpu().numpy()
+        with stage_timer("rescale_composite", frames=T):
+            out = feathered_composite(
+                inpainted, frames, dilated, float(feather_px),
+                keep_unmasked_original=keep_unmasked_original)
+            out_np = out.cpu().numpy()
     prog(100, "done")
     result = [out_np[i] for i in range(out_np.shape[0])]
     if return_latent_tail:

@@ -1,0 +1,140 @@
+"""Stage timers, structured logs and profiling (port of
+videovanish_tpu/utils/observability.py).
+
+- `stage_timer` / `record_stage`: per-stage durations as JSON lines on
+  stderr under VV_LOG=json (`{"event": "stage", "name", "seconds", ...}`,
+  the JAX package's fields), human-readable under any other VV_LOG value,
+  silent without it; `collect_stages` captures them in-process.
+- `maybe_profile`: with VV_PROFILE_DIR set, a torch.profiler trace (CPU
+  and, where there is a card, CUDA activity) of the region, written there
+  as a Chrome trace.
+- `trace_annotation`: a named range in that trace.
+
+The timers read the host clock: the card runs behind it, so work left in
+the queue bills to the stage that next waits on the device. The JAX
+package's
+`record_sharding` and `trace_shardings` record mesh shardings; the port
+runs on one card and has no mesh, so they are left out.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import logging
+import os
+import sys
+import time
+
+_LOGGER = None
+
+
+def get_logger() -> logging.Logger:
+    global _LOGGER
+    if _LOGGER is None:
+        lg = logging.getLogger("videovanish_tpu_torch")
+        mode = os.environ.get("VV_LOG", "")
+        if mode and not lg.handlers:
+            h = logging.StreamHandler(sys.stderr)
+            h.setFormatter(logging.Formatter(
+                "%(message)s" if mode == "json"
+                else "[vv %(asctime)s] %(message)s"))
+            lg.addHandler(h)
+            lg.setLevel(logging.INFO)
+        _LOGGER = lg
+    return _LOGGER
+
+
+def _emit(event: str, **fields):
+    lg = get_logger()
+    if not lg.handlers:
+        return
+    if os.environ.get("VV_LOG") == "json":
+        lg.info(json.dumps({"event": event, **fields}))
+    else:
+        kv = " ".join(f"{k}={v}" for k, v in fields.items())
+        lg.info(f"{event} {kv}")
+
+
+_STAGE_COLLECTORS: list[list] = []
+
+
+@contextlib.contextmanager
+def collect_stages(into: list):
+    """Append (stage, seconds, fields) of every stage recorded meanwhile,
+    in any thread, to `into`."""
+    _STAGE_COLLECTORS.append(into)
+    try:
+        yield into
+    finally:
+        # by identity: nested collectors hold equal lists
+        for i in range(len(_STAGE_COLLECTORS) - 1, -1, -1):
+            if _STAGE_COLLECTORS[i] is into:
+                del _STAGE_COLLECTORS[i]
+                break
+
+
+def record_stage(stage: str, seconds: float, **fields) -> None:
+    """Report a stage measured elsewhere, as stage_timer's exit does."""
+    for sink in _STAGE_COLLECTORS:
+        sink.append((stage, seconds, fields))
+    _emit("stage", name=stage, seconds=round(seconds, 4), **fields)
+
+
+@contextlib.contextmanager
+def stage_timer(stage: str, **fields):
+    """Time a stage on the host clock; record it and name it in a trace."""
+    t0 = time.perf_counter()
+    with trace_annotation(stage):
+        yield
+    record_stage(stage, time.perf_counter() - t0, **fields)
+
+
+@contextlib.contextmanager
+def trace_annotation(name: str):
+    import torch
+    with torch.profiler.record_function(name):
+        yield
+
+
+_PROFILER = None
+
+
+def start_profile(log_dir: str | None = None) -> bool:
+    """Start a torch.profiler trace for VV_PROFILE_DIR (or log_dir); True
+    if one was started."""
+    global _PROFILER
+    log_dir = log_dir or os.environ.get("VV_PROFILE_DIR")
+    if not log_dir or _PROFILER is not None:
+        return False
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    _PROFILER = (profile(activities=acts), log_dir)
+    _PROFILER[0].start()
+    _emit("profile_start", dir=log_dir)
+    return True
+
+
+def stop_profile() -> None:
+    global _PROFILER
+    if _PROFILER is not None:
+        prof, log_dir = _PROFILER
+        _PROFILER = None
+        prof.stop()
+        path = os.path.join(log_dir, f"trace_{os.getpid()}_"
+                                     f"{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        _emit("profile_stop", path=path)
+
+
+@contextlib.contextmanager
+def maybe_profile(log_dir: str | None = None):
+    started = start_profile(log_dir)
+    try:
+        yield
+    finally:
+        if started:
+            stop_profile()
