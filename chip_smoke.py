@@ -16,7 +16,28 @@
    method of every earlier run); `device_ms` and `library_device_ms` time
    the same number of calls replayed from a CUDA graph, cycling through
    copies of the inputs that do not fit in L2 together; each is the mean
-   of two runs in mirrored order (see `timed`);
+   of two runs in mirrored order (see `timed`). The backward rows
+   (flash_attn_bwd, small_seq_attn_bwd, at each instance the training
+   phase launches) hold dq, dk and dv to the same tolerance against
+   attention_backward_ref in f32, O and the log-sum-exp coming from the
+   forward kernel, require a second launch to be bitwise equal, and take
+   the backward of F.scaled_dot_product_attention (autograd over a kept
+   graph, its forward untimed) as the yardstick; their bound counts 10
+   B H Sq Sk D flops, one exponential a score, and the bytes of q, k, v,
+   o, dO, dq, dk, dv and the log-sum-exp;
+3a. training: the DiffuEraser training step (`videovanish_tpu_torch.train`)
+   at full width, the default config's UNet with motion modules and
+   BrushNet (2.2 B parameters, seeded), remat, on one 22-frame clip of
+   40x40 latents (TRAIN_CLIP; at 64x64 the step runs out of the card's
+   memory: scripts/train_memory_probe.py); a warm-up step and 4 timed
+   steps on the same batch, t and noise. Before the warm-up step the
+   same loss is differentiated apart from the trainer, in f32 with every
+   attention call on its plain path and no kernel launched; the warm-up
+   step's gradient of every parameter is held to it (TRAIN_GRAD_TOL of
+   its 2-norm). Checks finite losses, the last below the first, a finite
+   gradient for every parameter, and that every kernel instance it
+   launched has a kernel-phase row; prints the seconds per step, peak
+   memory, the state's bytes and launches per step;
 4. main path: `run_infill_on_frames` at the full SD1.5 / DiffuEraser width
    with seeded random weights, for two requests of 22 frames with the prior
    passed in: 1280x720 frames (544x960 inference, one temporal window) and
@@ -85,8 +106,9 @@
    files;
 9. prints one {"kernels": [...]} line, the card line, and last
    {"ok": true, "device": {...}}. A kernel row's `launches` counts the two
-   requests with the prior passed in and the SAM2 request (each instance
-   is launched by one of them; `launches_prior_request`,
+   requests with the prior passed in, the SAM2 request and the training
+   phase (each instance is launched by one of them; `launches_train_phase`,
+   `launches_prior_request`,
    `launches_sam2_request`, `launches_files_phase` (the chunked CLI run)
    and `launches_weights_phase` give the other runs apart).
 
@@ -94,9 +116,11 @@ After the build it prints each kernel's `ptxas` lines (registers, spills,
 warnings) and, where the toolkit has `cuobjdump`, the count of HGMMA (wgmma)
 instructions and the highest register in each flash instantiation's SASS,
 and the count of TMA loads (UTMALDG), cp.async copies (LDGSTS), ldmatrix
-and mma.sync instructions in each small_seq_attn instantiation's; a flash
-instantiation without HGMMA, or a small_seq_attn one with neither TMA
-loads nor cp.async copies, fails the run.
+and mma.sync instructions in each small_seq_attn instantiation's, and the
+mma.sync, ldmatrix and cp.async counts of each backward kernel; a flash
+instantiation without HGMMA, a small_seq_attn one with neither TMA loads
+nor cp.async copies, or a backward kernel that multiplies without
+mma.sync, fails the run.
 
 Any failure raises and exits non-zero.
 """
@@ -105,6 +129,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -126,7 +151,21 @@ NULL_TOL = 1e-4
 
 SRC_FLASH = "videovanish_tpu_torch/ops/csrc/flash_attn.cu"
 SRC_SMALL = "videovanish_tpu_torch/ops/csrc/small_seq_attn.cu"
+SRC_FLASH_BWD = "videovanish_tpu_torch/ops/csrc/flash_attn_bwd.cu"
+SRC_SMALL_BWD = "videovanish_tpu_torch/ops/csrc/small_seq_attn_bwd.cu"
 TPU_SRC = "videovanish_tpu/ops/attention.py"
+# the training phase: the default DiffuEraser config (UNet with motion
+# modules + BrushNet), one 22-frame clip of 40x40 latents (320x320 frames;
+# at 64x64 the step ran out of the card's memory, PERF.md)
+TRAIN_CLIP = (1, 22, 40, 40)
+TRAIN_LR = 1e-5
+TRAIN_STEPS = 4  # after one warm-up step
+# the warm-up step's gradients (bf16 autocast, the attention kernels) held
+# per parameter against the same loss in f32 on the plain attention path:
+# |g - g_ref|_2 <= TRAIN_GRAD_TOL * max(|g_ref|_2, TRAIN_GRAD_FLOOR * the
+# largest |g_ref|_2 of any parameter)
+TRAIN_GRAD_TOL = 0.05
+TRAIN_GRAD_FLOOR = 1e-3
 
 
 def card_line() -> str:
@@ -222,6 +261,28 @@ def check_small_seq_sass(lib_path) -> None:
                            f"cp.async copies: {missing}")
 
 
+def check_bwd_sass(built) -> None:
+    """Print the mma.sync (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
+    instructions and the highest register of every backward kernel; fail
+    if one that multiplies has no HMMA."""
+    ops = ("HMMA", "LDSM", "LDGSTS")
+    for lib in ("flash_attn_bwd", "small_seq_attn_bwd"):
+        stats = sass_stats(built[lib], ops)
+        if stats is None:
+            print("[sass] cuobjdump not found: HMMA count not taken")
+            return
+        kerns = {fn: st for fn, st in stats.items() if "_kernel" in fn}
+        if not kerns:
+            raise RuntimeError(f"no kernels in {lib}'s SASS")
+        for fn, (n, reg) in sorted(kerns.items()):
+            counts = ", ".join(f"{n[o]} {o}" for o in ops)
+            print(f"[sass] {lib} {fn[:60]}: {counts}, registers up to R{reg}")
+        missing = [fn for fn, (n, _) in kerns.items()
+                   if "delta" not in fn and n["HMMA"] == 0]
+        if missing:
+            raise RuntimeError(f"{lib} kernels without HMMA: {missing}")
+
+
 def time_ms(fn, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
     """Mean device time of fn() in ms, by CUDA events, after a warm-up."""
     import torch
@@ -243,7 +304,8 @@ def time_ms(fn, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fns, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
+def device_ms(fns, min_total_ms: float = 200.0, max_reps: int = 50,
+              stream=None) -> float:
     """Mean device time of one call in ms: as many calls as time_ms makes
     (the same count, so that both keep the card busy for as long), cycling
     through `fns` (one callable per copy of the inputs, or one callable),
@@ -252,7 +314,9 @@ def device_ms(fns, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
     wrapper, its checks, the launch) is not counted: where a call's host
     work takes longer than its kernel, time_ms measures the host and this
     the card. Copies that do not fit in L2 together make every call read
-    its inputs from device memory, as the bound assumes."""
+    its inputs from device memory, as the bound assumes. `stream`: the
+    capture stream (the stream a kept autograd graph's forward ran on, so
+    that its backward is captured)."""
     import torch
     fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
     side = torch.cuda.Stream()
@@ -264,7 +328,7 @@ def device_ms(fns, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
     once = max(time_ms(fns[0], min_total_ms=0, max_reps=1), 1e-3)
     calls = int(max(1, min(max_reps, min_total_ms // once)))
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
         for i in range(calls):
             fns[i % len(fns)]()
     graph.replay()
@@ -288,7 +352,7 @@ def copies_past_l2(bytes_per_call: int, most: int = 16) -> int:
     return int(min(most, max(1, math.ceil(2 * l2 / bytes_per_call))))
 
 
-def timed(kern, kerns, lib, libs) -> dict:
+def timed(kern, kerns, lib, libs, lib_stream=None) -> dict:
     """The kernel's and the library call's times, each the mean of two
     runs in mirrored order (call loop, CUDA graph, graph, call loop), so
     neither method always runs first on a cooler or warmer card: `ms` and
@@ -297,7 +361,8 @@ def timed(kern, kerns, lib, libs) -> dict:
     by device_ms cycling through the copies."""
     order = [("ms", time_ms, kern), ("library_ms", time_ms, lib),
              ("device_ms", device_ms, kerns),
-             ("library_device_ms", device_ms, libs)]
+             ("library_device_ms",
+              functools.partial(device_ms, stream=lib_stream), libs)]
     runs: dict = {}
     for name, timer, fn in order + order[::-1]:
         runs.setdefault(name, []).append(timer(fn))
@@ -362,7 +427,7 @@ def kernel_cases():
     cases += [flash(128, 8, 256, 256, 72), flash(8, 8, 4096, 4096, 72),
               flash(128, 16, 64, 256, 72), flash(2, 8, 22, 4096, 16),
               flash(2, 1, 4096, 4096, 256)]
-    return cases + [
+    cases += [
         # temporal attention over the 22-frame window, 544x960 inference:
         # levels 0, 1 and 2 (68x120, 34x60, 17x30 latents) and level 3 with
         # the mid block (9x15)
@@ -401,6 +466,17 @@ def kernel_cases():
         ("small_seq_attn[bhsd,N=1024,D=72,S=16]", pk, "packed",
          (1024, 16, 288, 4, 64)),
     ]
+    # the training phase's forward instances that inference does not launch
+    known = {c[0] for c in cases}
+    for fwd, _, route, shape in train_cases():
+        if fwd in known:
+            continue
+        if route == "flash":
+            cases.append(flash(*shape))
+        else:
+            cases.append((fwd, tm if route == "tokenmajor" else pk, route,
+                          shape))
+    return cases
 
 
 def kernel_case(route, shape, randn):
@@ -533,6 +609,431 @@ def run_kernel_phase(ex2_per_s: float, seed: int = 0):
         del q, k, v, sets
         torch.cuda.empty_cache()
     return rows
+
+
+def bwd_bound(B, H, Sq, Sk, D, ex2_per_s, lse: bool):
+    """Least time (ms) the card needs for one attention backward, and what
+    bounds it: the five products (10 B H Sq Sk D flops), one exponential a
+    score, or the bytes (q, k, v, o, dO read, dq, dk, dv written, bf16,
+    and the forward's f32 log-sum-exp where the kernel reads one)."""
+    t_bytes = (2 * B * H * (4 * Sq * D + 4 * Sk * D)
+               + (4 * B * H * Sq if lse else 0)) / PEAK_BYTES
+    t_ops = max(10 * B * H * Sq * Sk * D / PEAK_BF16_FLOPS,
+                B * H * Sq * Sk / ex2_per_s)
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_cases():
+    """(forward counter key, backward counter key, route, shape) of each
+    kernel instance the training phase launches, by the port's dispatch at
+    each level of the default UNet and BrushNet (8 heads, widths 320 to
+    1280, stride-2 downsampling rounding up): the spatial self-attention
+    (token-major), the text cross-attention (77 keys) and the temporal
+    attention over the clip's frames. Shapes as in kernel_cases()."""
+    from videovanish_tpu_torch.config import default_config
+    from videovanish_tpu_torch.ops import attention as A
+    cfg = default_config().diffueraser
+    heads, ctx = cfg.attention_head_dim, 77
+    B, T, h, w = TRAIN_CLIP
+    cases = {}
+
+    def add(route, shape):
+        if route == "flash":
+            _, _, Sq, Sk, D = shape
+            fwd = f"flash_attn_fwd[D={D},Sq={Sq},Sk={Sk}]"
+        elif route in ("tokenmajor", "packed"):
+            N, S, C, H = shape
+            layout = "tokenmajor" if route == "tokenmajor" else "bhsd"
+            fwd = f"small_seq_attn[{layout},N={N},D={C // H},S={S}]"
+        else:
+            return  # the plain path: no kernel
+        bwd = fwd.replace("flash_attn_fwd[", "flash_attn_bwd[").replace(
+            "small_seq_attn[", "small_seq_attn_bwd[")
+        cases[fwd] = (fwd, bwd, route, shape)
+    for lvl, C in enumerate(cfg.block_out_channels):
+        hl, wl = h, w
+        for _ in range(lvl):
+            hl, wl = -(-hl // 2), -(-wl // 2)
+        n, d = hl * wl, C // heads
+        route = A.tokenmajor_route((B * T, n, C), heads, True)
+        add(route, (B * T, heads, n, n, d) if route == "flash"
+            else (B * T, n, C, heads))
+        route = A.attention_route((B * T, heads, n), (B * T, heads, ctx),
+                                  True)
+        add(route, (B * T, heads, n, ctx, d))
+        route = A.tokenmajor_route((B * n, T, C), heads, True)
+        add(route, (B * T, heads, T, T, d) if route == "flash"
+            else (B * n, T, C, heads))
+    return list(cases.values())
+
+
+def backward_cases():
+    """(counter key, route, shape) of each backward instance the training
+    phase launches."""
+    return [(bwd, route, shape) for _, bwd, route, shape in train_cases()]
+
+
+def run_backward_rows(ex2_per_s: float, seed: int = 0):
+    """Kernel-phase rows of the backward kernels: bf16 q, k, v and dO from
+    the seed, laid out as the training step lays them out; the forward
+    kernel gives O (and flash's log-sum-exp). Each of dq, dk, dv is held to
+    TOL * max|plain| of attention_backward_ref in f32 on the same inputs,
+    and a second launch must equal the first bitwise. Times as the forward
+    rows (`timed`); the library yardstick is the backward of
+    F.scaled_dot_product_attention (torch.autograd.grad over a kept graph,
+    its forward not timed)."""
+    import torch
+    import torch.nn.functional as F
+    from videovanish_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=bf16)
+
+    lib_stream = torch.cuda.Stream()
+    rows = []
+    for key, route, shape in backward_cases():
+        if route == "flash":
+            B, H, Sq, Sk, D = shape
+            heads = 0
+
+            def make():  # split views of token-major projections
+                return [randn(B, S, H, D).permute(0, 2, 1, 3)
+                        for S in (Sq, Sk, Sk, Sq)]
+            split = bhsd = (lambda t: t)
+        else:
+            N, S, C, H = shape
+            B, Sq, Sk, D = N, S, S, C // H
+            heads = H if route == "tokenmajor" else 0
+
+            def make():
+                return [randn(N, S, C) for _ in range(4)]
+
+            def split(t):  # (N, S, C) -> its (N, H, S, D) view
+                return t.view(N, S, H, D).permute(0, 2, 1, 3)
+            # the wrapper's operands and gradients: token-major, or split
+            bhsd = split if heads else (lambda t: t)
+        scale = D ** -0.5
+
+        def prepare(q, k, v, dout):
+            """The operands as the wrapper gets them, with the forward
+            kernel's output (and statistics)."""
+            if not heads:
+                q, k, v, dout = split(q), split(k), split(v), split(dout)
+            if route == "flash":
+                out, lse = A._flash_forward(q, k, v, scale, with_lse=True)
+            else:
+                out, lse = A._small_seq_forward(q, k, v, scale, heads), None
+            return q, k, v, out, dout, lse
+
+        def kern(q, k, v, out, dout, lse):
+            if route == "flash":
+                return A.flash_attention_backward(q, k, v, out, dout, lse,
+                                                  scale)
+            return A.small_seq_attention_backward(q, k, v, out, dout, scale,
+                                                  heads)
+
+        def sdpa(q, k, v, out, dout, lse):
+            """A kept SDPA graph over q, k, v (B, H, S, D views), its forward
+            run on lib_stream (where its backward then runs), and the call
+            that takes its gradients."""
+            leaves = [bhsd(t).detach().requires_grad_() for t in (q, k, v)]
+            lib_stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(lib_stream):
+                o = F.scaled_dot_product_attention(*leaves, scale=scale)
+            torch.cuda.current_stream().wait_stream(lib_stream)
+            g = bhsd(dout)
+            return lambda: torch.autograd.grad(o, leaves, g,
+                                               retain_graph=True)
+
+        b_ms, b_by = bwd_bound(B, H, Sq, Sk, D, ex2_per_s, route == "flash")
+        sets = [prepare(*make()) for _ in range(copies_past_l2(
+            2 * B * H * (4 * Sq + 4 * Sk) * D))]
+        ops = sets[0]
+        before = A.LAUNCHES[key]
+        got = kern(*ops)
+        again = kern(*ops)
+        torch.cuda.synchronize()
+        if A.LAUNCHES[key] != before + 2:
+            raise RuntimeError(f"{key}: the call did not launch its kernel")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{key}: a second launch differs bitwise")
+        ref = A.attention_backward_ref(
+            *(bhsd(t).float() for t in ops[:5]), scale)
+        errs, limits = [], []
+        for g, r in zip(got, ref):
+            errs.append((bhsd(g).float() - r).abs().max().item())
+            limits.append(TOL * r.abs().max().item())
+        del ref, got, again
+        libs = [sdpa(*s) for s in sets]
+        t = timed(lambda: kern(*ops), [functools.partial(kern, *s)
+                                      for s in sets], libs[0], libs,
+                  lib_stream)
+        plain_ms = time_ms(lambda: A.attention_backward_ref(
+            *(bhsd(x).float() for x in ops[:5]), scale), min_total_ms=0,
+            max_reps=2)
+        err = max(e / lim for e, lim in zip(errs, limits))
+        row = {"name": key, "route": "cuda",
+               "source": SRC_FLASH_BWD if route == "flash" else SRC_SMALL_BWD,
+               "replaces": f"{TPU_SRC}:30" if route == "flash"
+               else f"{TPU_SRC}:460",
+               "computes": "jax.vjp of " + ("_xla_attention" if route ==
+                                            "flash" else
+                                            "_packed_small_attention")
+               + " (the JAX package has no backward kernel)",
+               "shape": {"B": B, "H": H, "Sq": Sq, "Sk": Sk, "D": D},
+               "launches": 0, "max_abs_err": max(errs),
+               "max_abs_err_dq_dk_dv": errs, "tolerance_dq_dk_dv": limits,
+               "tolerance": limits[errs.index(max(errs))],
+               "err_over_limit": err, "bitwise_rerun": True,
+               "ms": t["ms"], "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": t["library_ms"],
+               "bound_share": b_ms / t["ms"],
+               "library_ratio": t["library_ms"] / t["ms"],
+               "device_ms": t["device_ms"],
+               "library_device_ms": t["library_device_ms"],
+               "device_bound_share": b_ms / t["device_ms"],
+               "device_library_ratio": t["library_device_ms"] / t["device_ms"],
+               "input_copies": len(sets)}
+        print(f"[kernel] {key} err/limit dq,dk,dv="
+              f"{','.join(f'{e:.2e}/{lim:.2e}' for e, lim in zip(errs, limits))}"
+              f" ms={t['ms']:.4f} sdpa_bwd_ms={t['library_ms']:.4f} "
+              f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"bound/ms={row['bound_share']:.3f} sdpa/ms="
+              f"{row['library_ratio']:.3f} | device_ms={t['device_ms']:.4f} "
+              f"sdpa_bwd_device_ms={t['library_device_ms']:.4f} "
+              f"bound/device_ms={row['device_bound_share']:.3f} "
+              f"sdpa/device_ms={row['device_library_ratio']:.3f} "
+              f"({len(sets)} input copies), rerun bitwise", flush=True)
+        if not all(math.isfinite(e) and e <= lim
+                   for e, lim in zip(errs, limits)):
+            raise RuntimeError(f"{key}: max|kernel - plain| of dq, dk, dv "
+                               f"{errs} exceeds {limits}")
+        rows.append(row)
+        del ops, sets, libs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def state_bytes(state, params) -> int:
+    """Bytes of the trainer's state on the card: parameters, their
+    gradients and AdamW's two moments."""
+    n = 0
+    for name in state.params:
+        for k, p in state.params[name].items():
+            n += p.numel() * p.element_size()
+            n += state.opt_state["mu"][name][k].numel() * 4
+            n += state.opt_state["nu"][name][k].numel() * 4
+    return n + sum(p.grad.numel() * p.grad.element_size() for p in params
+                   if p.grad is not None)
+
+
+def reference_grads(unet, brushnet, batch, t, noise):
+    """The training loss's gradient at the modules' present parameters,
+    taken apart from `train_step`: f32 with no autocast, every attention
+    call on its plain path (the port's routes patched to "plain", so no
+    kernel launches), the trainer's two checkpoint cuts. Returns
+    ({(model, name): gradient on the host}, loss, peak GiB); the modules'
+    .grad are cleared."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from videovanish_tpu_torch.models.diffueraser.scheduler import (
+        NoiseSchedule,
+    )
+    from videovanish_tpu_torch.ops import attention as A
+
+    T = batch["latents"].shape[1]
+
+    def nchw(x):  # (B, T, h, w, C) -> (B*T, C, h, w)
+        return x.flatten(0, 1).permute(0, 3, 1, 2).float().contiguous()
+
+    t_full = t.long().repeat_interleave(T)
+    x_t = NoiseSchedule().add_noise(nchw(batch["latents"]), nchw(noise),
+                                    t_full)
+    sample = torch.cat([x_t, nchw(batch["masked_lat"]),
+                        nchw(batch["mask_lat"])], dim=1)
+    txt = batch["text_emb"].float().repeat_interleave(T, dim=0)
+
+    def unet_fwd(x, bd, bm, bu):
+        return unet(x, t_full, txt, T, brushnet_down=bd, brushnet_mid=bm,
+                    brushnet_up=bu)
+
+    launched = sum(A.LAUNCHES.values())
+    routes = A.attention_route, A.tokenmajor_route
+    A.attention_route = A.tokenmajor_route = lambda *a, **kw: "plain"
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        bd, bm, bu = checkpoint(brushnet, sample, t_full, txt,
+                                use_reentrant=False)
+        eps = checkpoint(unet_fwd, x_t, bd, bm, bu, use_reentrant=False)
+        loss = torch.mean(torch.square(eps.float() - nchw(noise)))
+        loss.backward()
+    finally:
+        A.attention_route, A.tokenmajor_route = routes
+    if sum(A.LAUNCHES.values()) != launched:
+        raise RuntimeError("the plain-path gradient launched a kernel")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grads = {}
+    for name, m in (("unet", unet), ("brushnet", brushnet)):
+        for k, p in m.named_parameters():
+            grads[name, k] = p.grad.cpu()
+            p.grad = None
+    return grads, loss.item(), peak
+
+
+def grad_agreement(params, ref) -> dict:
+    """Each parameter's gradient (`params[model][name].grad`, the trainer's
+    step on the card) against `ref` ({(model, name): tensor}): the 2-norm
+    of the difference over max(|ref|_2, TRAIN_GRAD_FLOOR * the largest
+    |ref|_2). Raises where that exceeds TRAIN_GRAD_TOL."""
+    import torch
+    diff, norm = {}, {}
+    for (name, k), g in ref.items():
+        p = params[name][k]
+        if p.grad is None:
+            raise RuntimeError(f"{name}.{k}: no gradient from the step")
+        gr = g.to(p.grad.device, torch.float64)
+        diff[name, k] = float((p.grad.double() - gr).norm())
+        norm[name, k] = float(gr.norm())
+    floor = TRAIN_GRAD_FLOOR * max(norm.values())
+    rel = {key: diff[key] / max(norm[key], floor) for key in ref}
+    worst = sorted(rel, key=rel.get, reverse=True)
+    vals = sorted(rel.values())
+    out = {"limit": TRAIN_GRAD_TOL, "floor": TRAIN_GRAD_FLOOR,
+           "parameters": len(rel), "median": vals[len(vals) // 2],
+           "p99": vals[int(0.99 * (len(vals) - 1))], "max": vals[-1],
+           "below_floor": sum(n < floor for n in norm.values()),
+           # a record, not the gate: each tensor over its own norm
+           "max_without_floor": max(diff[key] / norm[key] for key in ref
+                                    if norm[key] > 0),
+           "worst": [[".".join(key), rel[key], norm[key]]
+                     for key in worst[:8]]}
+    print(f"[train] gradients against f32 on the plain path: |g - g_ref| / "
+          f"|g_ref| median {out['median']:.4g}, p99 {out['p99']:.4g}, max "
+          f"{out['max']:.4g} (limit {TRAIN_GRAD_TOL}; {out['below_floor']} "
+          f"of {len(rel)} parameters under the floor; without the floor "
+          f"max {out['max_without_floor']:.4g}); worst "
+          f"{json.dumps(out['worst'])}", flush=True)
+    bad = [key for key in worst if rel[key] > TRAIN_GRAD_TOL]
+    if bad:
+        raise RuntimeError(f"{len(bad)} parameters' gradients differ from "
+                           f"the f32 plain path's by more than "
+                           f"{TRAIN_GRAD_TOL}: {['.'.join(b) for b in bad[:8]]}")
+    return out
+
+
+def run_train_phase(seed: int = 0):
+    """The DiffuEraser training step at full width on the card: the default
+    config's UNet (motion modules) and BrushNet, seeded with init_random_,
+    make_train_step with remat, one clip of TRAIN_CLIP latents; one
+    warm-up step, then TRAIN_STEPS on the same batch, t and noise. Checks
+    the warm-up step's gradients against `reference_grads`, finite losses,
+    the last below the first, and a finite gradient for every parameter.
+    Returns (launch counts of the timed steps, report)."""
+    import torch
+    from videovanish_tpu_torch.config import default_config
+    from videovanish_tpu_torch.models.diffueraser.blocks import init_random_
+    from videovanish_tpu_torch.models.diffueraser.brushnet import (
+        BrushNetModel,
+    )
+    from videovanish_tpu_torch.models.diffueraser.unet import UNetCondition
+    from videovanish_tpu_torch.ops import attention as A
+    from videovanish_tpu_torch.train import make_train_step
+
+    cfg = default_config().diffueraser
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        unet = UNetCondition(4, 4, cfg.block_out_channels,
+                             cfg.layers_per_block, cfg.attention_head_dim,
+                             cfg.cross_attention_dim)
+        brushnet = BrushNetModel(9, cfg.block_out_channels,
+                                 cfg.layers_per_block, cfg.attention_head_dim,
+                                 cfg.cross_attention_dim)
+    init_random_(unet, gen)
+    init_random_(brushnet, gen)
+    n_unet = sum(p.numel() for p in unet.parameters())
+    n_brush = sum(p.numel() for p in brushnet.parameters())
+    B, T, h, w = TRAIN_CLIP
+    batch = {
+        "latents": torch.randn(B, T, h, w, 4, generator=gen, device="cuda"),
+        "masked_lat": torch.randn(B, T, h, w, 4, generator=gen,
+                                  device="cuda"),
+        "mask_lat": (torch.rand(B, T, h, w, 1, generator=gen, device="cuda")
+                     > 0.5).float(),
+        "text_emb": torch.randn(B, 77, cfg.cross_attention_dim,
+                                generator=gen, device="cuda")}
+    t = torch.randint(0, 1000, (B,), generator=gen, device="cuda")
+    noise = torch.randn(batch["latents"].shape, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"[train] UNet {n_unet / 1e6:.1f} M + BrushNet {n_brush / 1e6:.1f}"
+          f" M parameters on the card in {setup_s:.1f} s; clip {TRAIN_CLIP} "
+          f"(B, T, h, w), t={t.tolist()}, lr {TRAIN_LR}, remat", flush=True)
+    t0 = time.perf_counter()
+    ref, ref_loss, ref_peak = reference_grads(unet, brushnet, batch, t, noise)
+    print(f"[train] f32 plain-path gradient: loss {ref_loss:.6f}, "
+          f"{time.perf_counter() - t0:.1f} s, peak {ref_peak:.2f} GiB",
+          flush=True)
+    init_fn, step_fn = make_train_step(unet, brushnet, None,
+                                       learning_rate=TRAIN_LR, remat=True)
+    state = init_fn()
+    torch.cuda.reset_peak_memory_stats()
+
+    losses, secs = [], []
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:
+            A.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch, t=t, noise=noise)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+        print(f"[train] step {i} ({'warm-up' if i == 0 else 'timed'}): loss "
+              f"{losses[-1]:.6f}, {secs[-1]:.3f} s", flush=True)
+        if i == 0:  # the step's gradients at the reference's parameters
+            grads = grad_agreement(state.params, ref)
+            del ref
+    counts = dict(A.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    params = [p for m in (unet, brushnet) for p in m.parameters()]
+    nbytes = state_bytes(state, params)
+    no_grad = [k for name in state.params
+               for k, p in state.params[name].items()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    report = {"clip_B_T_h_w": list(TRAIN_CLIP), "frames_hw": [h * 8, w * 8],
+              "parameters": {"unet": n_unet, "brushnet": n_brush},
+              "learning_rate": TRAIN_LR, "remat": True, "losses": losses,
+              "step_seconds": secs,
+              "warm_step_seconds": sum(secs[1:]) / TRAIN_STEPS,
+              "peak_gib": peak / 2 ** 30, "state_bytes": nbytes,
+              "setup_seconds": setup_s,
+              "f32_plain_path": {"loss": ref_loss, "peak_gib": ref_peak,
+                                 "loss_rel_diff": abs(losses[0] - ref_loss)
+                                 / abs(ref_loss),
+                                 "grad_rel_err": grads},
+              "launches_per_step": {k: n / TRAIN_STEPS
+                                    for k, n in sorted(counts.items())}}
+    print(f"[train] warm step {report['warm_step_seconds']:.3f} s, peak "
+          f"{report['peak_gib']:.2f} GiB, state {nbytes / 1e9:.2f} GB "
+          f"(params, grads, 2 moments); launches per step "
+          f"{json.dumps(report['launches_per_step'], sort_keys=True)}",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the last loss is not below the first: {losses}")
+    if no_grad:
+        raise RuntimeError(f"{len(no_grad)} parameters without a finite "
+                           f"gradient, e.g. {no_grad[:5]}")
+    del state, step_fn, init_fn, unet, brushnet, params, batch, noise
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, report
 
 
 def synthetic_request(T, H, W, seed):
@@ -1614,8 +2115,11 @@ def main(argv=None) -> int:
                 print(f"[ptxas] {line.strip()}")
     check_flash_sass(built["flash_attn"])
     check_small_seq_sass(built["small_seq_attn"])
+    check_bwd_sass(built)
 
     rows = run_kernel_phase(ex2_per_s, args.seed)
+    bwd_rows = run_backward_rows(ex2_per_s, args.seed)
+    counts_t, train_report = run_train_phase(args.seed)
     counts, launches_0, report = run_main_path(args.seed)
     counts_2, prior_report = run_prior_request(launches_0, args.seed)
     report.append(prior_report)
@@ -1624,13 +2128,31 @@ def main(argv=None) -> int:
     counts_5, files_report = run_files_phase(launches_0, args.seed)
     counts_4, weights_report = run_weights_phase(args.seed)
     for row in rows:
-        # each instance is driven by the infill requests or by SAM2
+        # each instance is driven by the infill requests, by SAM2 or by the
+        # training step
         row["launches"] = counts.get(row["name"], 0) + \
-            counts_3.get(row["name"], 0)
+            counts_3.get(row["name"], 0) + counts_t.get(row["name"], 0)
         row["launches_prior_request"] = counts_2.get(row["name"], 0)
         row["launches_sam2_request"] = counts_3.get(row["name"], 0)
         row["launches_weights_phase"] = counts_4.get(row["name"], 0)
         row["launches_files_phase"] = counts_5.get(row["name"], 0)
+    for row in rows + bwd_rows:
+        row["launches_train_phase"] = counts_t.get(row["name"], 0)
+    for row in bwd_rows:
+        # the training step is the backward kernels' main path
+        row["launches"] = row["launches_train_phase"]
+        for phase in ("prior_request", "sam2_request", "weights_phase",
+                      "files_phase"):
+            row[f"launches_{phase}"] = 0
+    train_missing = sorted(set(counts_t) - {r["name"] for r in bwd_rows}
+                           - {r["name"] for r in rows}
+                           | {r["name"] for r in bwd_rows
+                              if not counts_t.get(r["name"])})
+    if train_missing:
+        raise RuntimeError(f"training-phase instances without a kernel-"
+                           f"phase row, or backward rows it did not "
+                           f"launch: {train_missing}")
+    rows += bwd_rows
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
@@ -1640,12 +2162,13 @@ def main(argv=None) -> int:
         raise RuntimeError(f"SAM2 kernel instances not launched by the SAM2 "
                            f"request: {sam2_missing}")
     unchecked = sorted((set(counts) | set(counts_2) | set(counts_3)
-                        | set(counts_4) | set(counts_5))
+                        | set(counts_4) | set(counts_5) | set(counts_t))
                        - {r["name"] for r in rows})
     if unchecked:
         raise RuntimeError(f"main-path kernel instances without a "
                            f"kernel-phase check: {unchecked}")
     print(json.dumps({"kernels": rows, "main_path": report,
+                      "train_phase": train_report,
                       "weights_phase": weights_report,
                       "files_phase": files_report}))
     print(card)

@@ -12,8 +12,9 @@ consumer warpgroups, the key-tile width or the ring depth), and times
 each beside the unmodified kernel at main-path shapes. The variants that
 drop work compute wrong results: they only show what that part costs.
 With `--baseline DIR`, the `flash_attn.cu` in DIR (built against the
-headers in DIR, an earlier version of `ops/csrc/` with the same C
-interface) is timed too, as variant `baseline`. Times are CUDA-event means
+headers in DIR, an earlier version of `ops/csrc/`; one from before the
+optional log-sum-exp output is called without it) is timed too, as
+variant `baseline`. Times are CUDA-event means
 (chip_smoke.time_ms), taken in `--passes` passes, every other one in
 reverse order, and averaged; the card's name and power limit are printed
 first.
@@ -73,6 +74,14 @@ SHAPES = {
     "d40": [(22, 8, 8160, 8160, 40), (22, 8, 4096, 4096, 40)],
     "d80": [(22, 8, 2040, 2040, 80)],
     "d512": [(8, 1, 8160, 8160, 512)],
+    # the training step at 64x64 latents (22 frames)
+    "train": [(22, 8, 4096, 4096, 40), (22, 8, 4096, 77, 40),
+              (22, 8, 1024, 1024, 80), (22, 8, 1024, 77, 80),
+              (22, 8, 256, 256, 160)],
+    # SAM2: the mask decoder (D = 16), Hiera's global blocks (D = 72),
+    # memory self-attention (D = 256)
+    "sam2": [(2, 8, 22, 4096, 16), (8, 8, 4096, 4096, 72),
+             (2, 1, 4096, 4096, 256)],
 }
 
 
@@ -102,6 +111,12 @@ def main(argv=None) -> int:
                                args.baseline)
         names.append("baseline")
     libs = build("flash_attn", sources, ROOT / "build" / "flash_ablation")
+    # the lse argument where the source has it (None: no statistics)
+    extra = {n: (None,) for n in names}
+    if "baseline" in names and "float* lse" not in sources["baseline"][0]:
+        fn = libs["baseline"].vv_flash_attn_fwd
+        fn.argtypes = fn.argtypes[:4] + fn.argtypes[5:]
+        extra["baseline"] = ()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for key in args.shapes.split(","):
         for B, H, Sq, Sk, D in SHAPES[key]:
@@ -113,7 +128,7 @@ def main(argv=None) -> int:
 
             def run(name):
                 return lambda: A._launch(libs[name].vv_flash_attn_fwd, q, k,
-                                         v, out, scale)
+                                         v, out, scale, extra=extra[name])
             ref = A.flash_attention_ref(q[:1].float(), k[:1].float(),
                                         v[:1].float(), scale)
             errs = []

@@ -273,43 +273,44 @@ def test_kernels_refuse_bad_operands(gen):
 # attention, 22 queries over 4096 image tokens; one consumer warpgroup,
 # 64-row query tiles, 128-key tiles) and D = 256 (memory self-attention,
 # one head; two warpgroups share 64 query rows, 64-key tiles)
-@pytest.mark.parametrize("D", [16, 256])
-def test_flash_sam2_query_tile_edges(gen, D):
-    B, H, Sk = (2, 8, 300) if D == 16 else (2, 1, 300)
-    _each([(Sq,) for Sq in (1, 22, 63, 64, 65, 129)],
-          lambda Sq: _flash_check(_randn(gen, B, H, Sq, D),
-                                  _randn(gen, B, H, Sk, D),
-                                  _randn(gen, B, H, Sk, D)))
+def test_flash_sam2_query_tile_edges(gen):
+    def check(D, Sq):
+        B, H, Sk = (2, 8, 300) if D == 16 else (2, 1, 300)
+        _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                     _randn(gen, B, H, Sk, D))
+    _each([(D, Sq) for D in (16, 256)
+           for Sq in (1, 22, 63, 64, 65, 129)], check)
 
 
-@pytest.mark.parametrize("D", [16, 256])
-def test_flash_sam2_key_tile_edges(gen, D):
-    B, H, Sq = (2, 8, 22) if D == 16 else (1, 1, 100)
-    _each([(Sk,) for Sk in (1, 63, 64, 65, 127, 128, 129, 4097)],
-          lambda Sk: _flash_check(_randn(gen, B, H, Sq, D),
-                                  _randn(gen, B, H, Sk, D),
-                                  _randn(gen, B, H, Sk, D)))
+def test_flash_sam2_key_tile_edges(gen):
+    def check(D, Sk):
+        B, H, Sq = (2, 8, 22) if D == 16 else (1, 1, 100)
+        _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                     _randn(gen, B, H, Sk, D))
+    _each([(D, Sk) for D in (16, 256)
+           for Sk in (1, 63, 64, 65, 127, 128, 129, 4097)], check)
 
 
-@pytest.mark.parametrize("D", [16, 256])
-def test_flash_sam2_batch_heads(gen, D):
-    Sq, Sk = (22, 4096) if D == 16 else (256, 256)
-    _each([(1, 1), (2, 8), (40, 8), (3, 5)],
-          lambda B, H: _flash_check(_randn(gen, B, H, Sq, D),
-                                    _randn(gen, B, H, Sk, D),
-                                    _randn(gen, B, H, Sk, D)))
+def test_flash_sam2_batch_heads(gen):
+    def check(D, B, H):
+        Sq, Sk = (22, 4096) if D == 16 else (256, 256)
+        _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                     _randn(gen, B, H, Sk, D))
+    _each([(D, B, H) for D in (16, 256)
+           for B, H in ((1, 1), (2, 8), (40, 8), (3, 5))], check)
 
 
-@pytest.mark.parametrize("D", [16, 256])
-def test_flash_sam2_last_head_of_wider_storage(gen, D):
+def test_flash_sam2_last_head_of_wider_storage(gen):
     """Head splits of (B, S, H+1, D) storage with the extra head dropped,
     as the decoder's (B, S, 8*16) projections are split: nothing past a
     head's D or past the last head is read."""
-    B, H, Sq, Sk = (2, 8, 22, 700) if D == 16 else (2, 1, 130, 300)
+    def check(D):
+        B, H, Sq, Sk = (2, 8, 22, 700) if D == 16 else (2, 1, 130, 300)
 
-    def view(S):
-        return _randn(gen, B, S, H + 1, D)[:, :, :H].permute(0, 2, 1, 3)
-    _flash_check(view(Sq), view(Sk), view(Sk))
+        def view(S):
+            return _randn(gen, B, S, H + 1, D)[:, :, :H].permute(0, 2, 1, 3)
+        _flash_check(view(Sq), view(Sk), view(Sk))
+    _each([(16,), (256,)], check)
 
 
 @pytest.mark.parametrize("B,H,Sq,Sk,D", [
@@ -341,3 +342,116 @@ def test_small_seq_hiera_qpool_shape(gen, N):
     _small_check(_split(_randn(gen, N, 16, H * D), H),
                  _split(_randn(gen, N, 64, H * D), H),
                  _split(_randn(gen, N, 64, H * D), H))
+
+
+# ---------------------------------------------------------------------------
+# backward kernels: flash_attn_bwd and small_seq_attn_bwd through the
+# wrappers' autograd Functions, against attention_backward_ref in f32 on the
+# same bf16 inputs and the kernel's own forward output
+# ---------------------------------------------------------------------------
+def _bwd_launches():
+    return sum(n for key, n in A.LAUNCHES.items() if "_bwd[" in key)
+
+
+def _grads(fn, q, k, v, dout):
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves)
+    out.backward(dout)
+    return out.detach(), [t.grad for t in leaves]
+
+
+def _bwd_check(fn, q, k, v, dout, heads=0):
+    """The gradients of fn (a wrapper) at q, k, v for dout: one backward
+    launch, each of dq, dk, dv within TOL of max|plain|, and a rerun
+    bitwise. heads: token-major operands with that many heads. A gradient
+    that vanishes in exact arithmetic (dq and dk over a single key, where
+    dS = P (dP - rowsum(dO o O)) = 0) holds rounding noise only: its scale
+    is floored at 1e-3 of the largest of the three."""
+    d = q.shape[-1] // heads if heads else q.shape[-1]
+    n = _bwd_launches()
+    out, got = _grads(fn, q, k, v, dout)
+    assert _bwd_launches() == n + 1
+
+    def split(t):
+        return _split(t, heads) if heads else t
+    ref = A.attention_backward_ref(
+        *(split(t).float() for t in (q, k, v, out, dout)), d ** -0.5)
+    top = max(r.abs().max().item() for r in ref)
+    for g, r in zip(got, ref):
+        assert g.shape == (q.shape if heads else r.shape)
+        assert bool(torch.isfinite(g).all())
+        err = (split(g).float() - r).abs().max().item()
+        assert err <= TOL * max(r.abs().max().item(), 1e-3 * top), err
+    again = _grads(fn, q, k, v, dout)[1]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _storage_views(gen, B, H, Sq, Sk, D):
+    """q, k, v, dO as head splits of (B, S, H+1, D) storage with the extra
+    head dropped: nothing past a head's D or past the last head may be
+    read."""
+    def view(S):
+        return _randn(gen, B, S, H + 1, D)[:, :, :H].permute(0, 2, 1, 3)
+    return view(Sq), view(Sk), view(Sk), view(Sq)
+
+
+def test_flash_bwd_matches_plain(gen):
+    """flash_attn_bwd's edges: key tails of 1 and 33 (64-key blocks), Sq = 1
+    and query tails (64-query blocks), D = 40/80/160, the last head of
+    token-major storage, and a dO whose D is not contiguous (copied into
+    the kernel's layout)."""
+    def fn(q, k, v):
+        return A.flash_attention(q, k, v, q.shape[-1] ** -0.5)
+
+    def plain(B, H, Sq, Sk, D):
+        _bwd_check(fn, _randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                   _randn(gen, B, H, Sk, D), _randn(gen, B, H, Sq, D))
+
+    def storage(B, H, Sq, Sk, D):
+        _bwd_check(fn, *_storage_views(gen, B, H, Sq, Sk, D))
+
+    def strided_dout(B, H, Sq, Sk, D):
+        dout = _randn(gen, B, H, D, Sq).transpose(-1, -2)
+        _bwd_check(fn, _randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                   _randn(gen, B, H, Sk, D), dout)
+    _each([(plain, 1, 2, 100, 100, 40), (plain, 2, 2, 70, 77, 80),
+           (plain, 1, 2, 256, 256, 160), (plain, 1, 2, 64, 1, 40),
+           (plain, 1, 2, 90, 33, 160), (plain, 2, 2, 1, 300, 80),
+           (plain, 1, 1, 1, 77, 40), (plain, 1, 1, 130, 200, 40),
+           (storage, 2, 3, 150, 77, 40), (storage, 1, 2, 65, 129, 160),
+           (strided_dout, 1, 2, 100, 77, 80)],
+          lambda f, *shape: f(*shape))
+
+
+def test_small_seq_bwd_matches_plain(gen):
+    """small_seq_attn_bwd's edges: key tails of 1 and 33, Sq = 1, S = 22
+    and 64, both layouts, the last head of token-major storage, and a dO
+    whose D is not contiguous."""
+    def fn(q, k, v):
+        return A.small_seq_attention(q, k, v, q.shape[-1] ** -0.5)
+
+    def plain(B, H, Sq, Sk, D):
+        _bwd_check(fn, _randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                   _randn(gen, B, H, Sk, D), _randn(gen, B, H, Sq, D))
+
+    def tokenmajor(N, S, heads, d):
+        def tm(q, k, v):
+            return A.small_seq_attention_tokenmajor(q, k, v, heads,
+                                                    d ** -0.5)
+        _bwd_check(tm, *(_randn(gen, N, S, heads * d) for _ in range(4)),
+                   heads=heads)
+
+    def storage(B, H, Sq, Sk, D):
+        _bwd_check(fn, *_storage_views(gen, B, H, Sq, Sk, D))
+
+    def strided_dout(B, H, Sq, Sk, D):
+        dout = _randn(gen, B, H, D, Sq).transpose(-1, -2)
+        _bwd_check(fn, _randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                   _randn(gen, B, H, Sk, D), dout)
+    _each([(plain, 5, 3, 22, 22, 40), (plain, 7, 2, 17, 30, 80),
+           (plain, 3, 4, 64, 64, 160), (plain, 9, 1, 33, 1, 80),
+           (plain, 4, 2, 20, 33, 40), (plain, 4, 2, 1, 64, 160),
+           (tokenmajor, 37, 22, 8, 40), (tokenmajor, 10, 64, 2, 160),
+           (storage, 6, 4, 22, 22, 80), (storage, 3, 2, 64, 64, 160),
+           (strided_dout, 5, 2, 22, 22, 40)],
+          lambda f, *shape: f(*shape))

@@ -384,3 +384,37 @@ def jax_params_to_state_dict(params: dict, model: str) -> dict:
             raise ValueError(f"unknown leaf {'/'.join(path)}")
         out[key] = torch.tensor(a)
     return out
+
+
+def _adam_state(opt_state):
+    """The first node of an optax state tree with `mu` and `nu` (the
+    ScaleByAdamState of optax.adamw's chain), or None."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def jax_train_state_to_port(state):
+    """A TrainState of the JAX package's trainer (step, params {"unet",
+    "brushnet"}, optax.adamw's opt_state) -> the port's TrainState, f32 CPU
+    tensors under the port's keys: the params and AdamW's moments `mu` and
+    `nu` through jax_params_to_state_dict (the moments and gradients have
+    the params' layout), `count` and `step` as ints. `step_fn` copies it
+    into its modules and optimizer."""
+    from videovanish_tpu_torch.train.train_step import MODELS, TrainState
+
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("no AdamW moments (mu, nu) in the JAX opt_state")
+
+    def port(tree):
+        return {name: jax_params_to_state_dict(tree[name], name)
+                for name in MODELS}
+    return TrainState(int(np.asarray(state.step)), port(state.params),
+                      {"count": int(np.asarray(adam.count)),
+                       "mu": port(adam.mu), "nu": port(adam.nu)})

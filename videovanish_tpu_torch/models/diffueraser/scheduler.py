@@ -34,10 +34,17 @@ class NoiseSchedule:
         return np.sqrt(np.float32(1.0) - self.alphas_cumprod[t])
 
     def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
-                  t: int) -> torch.Tensor:
-        """q(x_t | x_0) = sqrt(acp_t) x0 + sqrt(1 - acp_t) eps, in f32."""
-        return float(self.sqrt_acp(t)) * x0.float() \
-            + float(self.sqrt_one_minus_acp(t)) * noise.float()
+                  t) -> torch.Tensor:
+        """q(x_t | x_0) = sqrt(acp_t) x0 + sqrt(1 - acp_t) eps, in f32. t is
+        an int, or an integer tensor of one timestep per leading entry of x0
+        (training's (B*T,) draws), broadcast over the other axes."""
+        if not isinstance(t, torch.Tensor):
+            return float(self.sqrt_acp(t)) * x0.float() \
+                + float(self.sqrt_one_minus_acp(t)) * noise.float()
+        acp = torch.from_numpy(self.alphas_cumprod).to(x0.device)[t.long()]
+        shape = acp.shape + (1,) * (x0.dim() - acp.dim())
+        return acp.sqrt().view(shape) * x0.float() \
+            + (1.0 - acp).sqrt().view(shape) * noise.float()
 
     def pred_x0_from_eps(self, x_t: torch.Tensor, eps: torch.Tensor,
                          t: int) -> torch.Tensor:

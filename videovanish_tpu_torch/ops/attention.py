@@ -16,6 +16,14 @@ Each wrapper takes its kernel's plain PyTorch version when the tensors lie
 on the CPU, and on a CUDA tensor launches the kernel or raises; it never
 falls back. Every launch adds one to `LAUNCHES[<instance>]`.
 
+Gradients. The Pallas kernels define no VJP; the JAX trainer differentiates
+`_xla_attention` and `_packed_small_attention` instead. Here, when grad mode
+is on and q, k or v requires grad, each wrapper goes through a
+torch.autograd.Function whose backward is a hand-written kernel on the card
+(csrc/flash_attn_bwd.cu, csrc/small_seq_attn_bwd.cu: what jax.vjp of those
+XLA functions computes) and `attention_backward_ref` on the CPU. Without
+grad the wrappers launch their forward kernel directly, as for inference.
+
 Layout: (B, H, S, D). The kernels read q/k/v through strides (head dim
 contiguous) and write their output into (B, S, H, D) storage, so callers
 that split heads off a (B, S, H*D) projection need no transpose copies.
@@ -70,8 +78,37 @@ def plain_attention(q, k, v, scale, is_causal=False, key_mask=None,
     return (out[0] if len(out) == 1 else torch.cat(out, dim=2)).to(q.dtype)
 
 
+def attention_backward_ref(q, k, v, o, do, scale,
+                           max_score_bytes: int = 1 << 32):
+    """Closed-form gradient of `plain_attention` (no mask), in f32:
+    P = softmax(scale q k^T), dV = P^T dO, dP = dO V^T,
+    dS = P (dP - rowsum(dO o O)), dQ = scale dS K, dK = scale dS^T Q.
+    Taken in query chunks, as `plain_attention`, so the f32 scores stay
+    under `max_score_bytes`; dK and dV accumulate over the chunks. Returns
+    (dq, dk, dv) in the dtypes of q, k and v."""
+    B, H, Sq, _ = q.shape
+    Sk = k.shape[2]
+    rows = max(1, max_score_bytes // max(1, B * H * Sk * 4))
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(vf.shape, dtype=torch.float32, device=v.device)
+    dq = []
+    for i in range(0, Sq, rows):
+        qc, oc, dc = (t[:, :, i:i + rows].float() for t in (q, o, do))
+        p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", qc, kf) * scale,
+                          dim=-1)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, dc)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dc, vf)
+        ds = p * (dp - (dc * oc).sum(-1, keepdim=True))
+        dq.append(torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale)
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
+    dq = dq[0] if len(dq) == 1 else torch.cat(dq, dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # the plain versions of flash_attn_fwd and small_seq_attn: both kernels
-# compute exactly this function
+# compute exactly this function; flash_attn_bwd and small_seq_attn_bwd
+# compute attention_backward_ref
 flash_attention_ref = plain_attention
 small_seq_attention_ref = plain_attention
 
@@ -128,30 +165,34 @@ def _bhsd_dims(q, k, v, out):
     return B, H, Sq, Sk, D
 
 
-def _run(fn, ops, dims, scale, *ts) -> None:
-    """Launch `fn` on the current stream of the tensors `ts`' card, with q,
-    k, v and out given as `_operand` tuples and dims (B, H, Sq, Sk, D)."""
+def _run(fn, ops, dims, scale, *ts, extra=()) -> None:
+    """Launch `fn` on the current stream of the tensors `ts`' card, with its
+    operands given as `_operand` tuples (q, k, v and out; the backward's
+    q, k, v, out, dout, dq, dk, dv), the pointers `extra` after them (the
+    C functions take them in that order), dims (B, H, Sq, Sk, D), and
+    scale * log2(e)."""
     dev = ts[0].get_device()
     if any(t.get_device() != dev for t in ts):
         raise ValueError("q, k, v must lie on one device")
     B, H, Sq, Sk, D = dims
     if D % 8 or Sq < 1 or Sk < 1:
         raise ValueError(f"head dim must be a multiple of 8, got D={D}")
-    strides = (ctypes.c_longlong * 12)(*ops[0][1:], *ops[1][1:], *ops[2][1:],
-                                       *ops[3][1:])
+    strides = (ctypes.c_longlong * (3 * len(ops)))(
+        *(s for op in ops for s in op[1:]))
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    rc = fn(ops[0][0], ops[1][0], ops[2][0], ops[3][0], B, H, Sq, Sk, D,
-            strides, float(scale) * _LOG2E, stream)
+    rc = fn(*(op[0] for op in ops), *extra, B, H, Sq, Sk, D, strides,
+            float(scale) * _LOG2E, stream)
     if rc != 0:  # a cudaError_t, or 1000 + the CUresult of a tensor map
         raise RuntimeError(f"{fn.__name__} failed: error {rc}")
 
 
-def _launch(fn, q, k, v, out, scale) -> None:
+def _launch(fn, q, k, v, out, scale, extra=()) -> None:
     """Launch `fn` (vv_flash_attn_fwd or vv_small_seq_attn) on bf16
-    (B, H, S, D) q, k, v and out."""
+    (B, H, S, D) q, k, v and out; `extra`: vv_flash_attn_fwd's lse
+    pointer (None for none)."""
     ops = [_operand(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"),
                                        (out, "out"))]
-    _run(fn, ops, _bhsd_dims(q, k, v, out), scale, q, k, v, out)
+    _run(fn, ops, _bhsd_dims(q, k, v, out), scale, q, k, v, out, extra=extra)
 
 
 def _bhsd_out(q):
@@ -177,19 +218,108 @@ def _small_seq_takes(dp: int, sq: int, sk: int) -> bool:
         dp, sq, sk))
 
 
-def flash_attention(q, k, v, scale):
-    """softmax(q k^T * scale) v over (B, H, Sq, D) x (B, H, Sk, D) with the
-    flash_attn_fwd kernel (plain version on the CPU)."""
-    if not _on_card(q, k, v):
-        return flash_attention_ref(q, k, v, scale)
+@functools.lru_cache(maxsize=None)
+def _flash_bwd_takes(dp: int) -> bool:
+    return bool(kernels.library("flash_attn_bwd").vv_flash_bwd_supported(dp))
+
+
+@functools.lru_cache(maxsize=None)
+def _small_seq_bwd_takes(dp: int, sq: int, sk: int) -> bool:
+    return bool(kernels.library("small_seq_attn_bwd")
+                .vv_small_seq_bwd_supported(dp, sq, sk))
+
+
+def _grad_wanted(q, k, v) -> bool:
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+
+
+def _flash_forward(q, k, v, scale, with_lse: bool = False):
+    """(out, lse) of the flash_attn_fwd kernel on CUDA q, k, v; lse is the
+    f32 (B, H, Sq) log2-domain log-sum-exp flash_attn_bwd reads, or None."""
     D = q.shape[-1]
     if not _flash_takes(_padded(D)):
         raise ValueError(f"flash_attn_fwd is not built for head dim {D}")
     out = _bhsd_out(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
+        if with_lse else None
     _launch(kernels.library("flash_attn").vv_flash_attn_fwd, q, k, v, out,
-            scale)
+            scale, extra=(None if lse is None else lse.data_ptr(),))
     LAUNCHES[f"flash_attn_fwd[D={D},Sq={q.shape[2]},Sk={k.shape[2]}]"] += 1
-    return out
+    return out, lse
+
+
+def _kernel_layout(t, heads: int = 0):
+    """`t` (an incoming gradient) as the backward kernels read it: itself
+    where `_operand` takes its strides, else a contiguous copy (a layout
+    copy, not a fallback)."""
+    try:
+        _operand(t, "dout", heads)
+        return t
+    except ValueError:
+        return t.contiguous()
+
+
+def flash_attention_backward(q, k, v, out, dout, lse, scale):
+    """(dq, dk, dv) of `flash_attention` at (q, k, v) with output `out` and
+    its gradient `dout`: the flash_attn_bwd kernel on the card (lse from
+    the forward), `attention_backward_ref` on the CPU."""
+    if not _on_card(q, k, v, out, dout):
+        return attention_backward_ref(q, k, v, out, dout, scale)
+    D = q.shape[-1]
+    if not _flash_bwd_takes(_padded(D)):
+        raise ValueError(f"flash_attn_bwd is not built for head dim {D}")
+    dout = _kernel_layout(dout)
+    grads = [_bhsd_out(t) for t in (q, k, v)]
+    ts = (q, k, v, out, dout, *grads)
+    ops = [_operand(t, n) for t, n in zip(ts, ("q", "k", "v", "out", "dout",
+                                               "dq", "dk", "dv"))]
+    dims = _bhsd_dims(q, k, v, out)
+    if dout.shape != out.shape:
+        raise ValueError("dout's shape differs from the output's")
+    B, H, Sq, Sk, _ = dims
+    if lse is None or lse.shape != (B, H, Sq) or not lse.is_contiguous() \
+            or lse.dtype is not torch.float32:
+        raise ValueError("flash_attn_bwd needs the forward's f32 (B, H, Sq) "
+                         "log-sum-exp")
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    _run(kernels.library("flash_attn_bwd").vv_flash_attn_bwd, ops, dims,
+         scale, *ts, extra=(lse.data_ptr(), delta.data_ptr()))
+    LAUNCHES[f"flash_attn_bwd[D={D},Sq={Sq},Sk={Sk}]"] += 1
+    return tuple(grads)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention with its gradient: flash_attn_fwd (with the row
+    statistics) and flash_attn_bwd on the card, the plain versions on the
+    CPU. Saves q, k, v, the output and the statistics."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if _on_card(q, k, v):
+            out, lse = _flash_forward(q, k, v, scale, with_lse=True)
+        else:  # grad mode is off here: the wrapper's direct path
+            out, lse = flash_attention(q, k, v, scale), None
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, out, dout, lse, ctx.scale),
+                None)
+
+
+def flash_attention(q, k, v, scale):
+    """softmax(q k^T * scale) v over (B, H, Sq, D) x (B, H, Sk, D) with the
+    flash_attn_fwd kernel (plain version on the CPU); differentiable
+    through flash_attn_bwd when q, k or v requires grad."""
+    if _grad_wanted(q, k, v):
+        return _FlashAttention.apply(q, k, v, scale)
+    if not _on_card(q, k, v):
+        return flash_attention_ref(q, k, v, scale)
+    return _flash_forward(q, k, v, scale)[0]
 
 
 def _small_seq(q, k, v, out, scale, layout: str, heads: int = 0):
@@ -218,33 +348,113 @@ def _small_seq(q, k, v, out, scale, layout: str, heads: int = 0):
     return out
 
 
-def small_seq_attention(q, k, v, scale):
-    """Exact attention for short sequences over (B, H, S, D) input
-    (S <= 64, Sq != Sk allowed) with the small_seq_attn kernel
-    (plain version on the CPU)."""
-    if not _on_card(q, k, v):
-        return small_seq_attention_ref(q, k, v, scale)
-    return _small_seq(q, k, v, _bhsd_out(q), scale, "bhsd")
-
-
 def _split_heads(t, heads: int):
     """(N, S, heads*d) -> its (N, heads, S, d) view."""
     N, S, C = t.shape
     return t.view(N, S, heads, C // heads).permute(0, 2, 1, 3)
 
 
+def _merge_heads(t):
+    """(N, heads, S, d) -> (N, S, heads*d)."""
+    N, H, S, d = t.shape
+    return t.permute(0, 2, 1, 3).reshape(N, S, H * d)
+
+
+def _small_seq_forward(q, k, v, scale, heads: int = 0):
+    """small_seq_attn on CUDA (B, H, S, D) q, k, v, or with `heads` on
+    token-major (N, S, heads*d) ones (output in the same layout)."""
+    if heads:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        return _small_seq(q, k, v, out, scale, "tokenmajor", heads)
+    return _small_seq(q, k, v, _bhsd_out(q), scale, "bhsd")
+
+
+def small_seq_attention_backward(q, k, v, out, dout, scale, heads: int = 0):
+    """(dq, dk, dv) of `small_seq_attention` (or with `heads`, of
+    `small_seq_attention_tokenmajor`, every tensor token-major (N, S, C))
+    at (q, k, v) with output `out` and its gradient `dout`: the
+    small_seq_attn_bwd kernel on the card, `attention_backward_ref` on the
+    CPU."""
+    if not _on_card(q, k, v, out, dout):
+        if not heads:
+            return attention_backward_ref(q, k, v, out, dout, scale)
+        grads = attention_backward_ref(
+            *(_split_heads(t, heads) for t in (q, k, v, out, dout)), scale)
+        return tuple(_merge_heads(g) for g in grads)
+    dout = _kernel_layout(dout, heads)
+    if heads:
+        N, S, C = q.shape
+        if any(t.shape != q.shape for t in (k, v, out, dout)) or C % heads:
+            raise ValueError(f"token-major q{tuple(q.shape)} "
+                             f"k{tuple(k.shape)} v{tuple(v.shape)} with "
+                             f"{heads} heads")
+        dims = (N, heads, S, S, C // heads)
+        grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                 for _ in range(3)]
+        layout = "tokenmajor"
+    else:
+        dims = _bhsd_dims(q, k, v, out)
+        if dout.shape != out.shape:
+            raise ValueError("dout's shape differs from the output's")
+        grads = [_bhsd_out(t) for t in (q, k, v)]
+        layout = "bhsd"
+    B, _, Sq, Sk, D = dims
+    if not _small_seq_bwd_takes(_padded(D), Sq, Sk):
+        raise ValueError(f"small_seq_attn_bwd does not take D={D}, Sq={Sq}, "
+                         f"Sk={Sk}")
+    ts = (q, k, v, out, dout, *grads)
+    ops = [_operand(t, n, heads) for t, n in zip(
+        ts, ("q", "k", "v", "out", "dout", "dq", "dk", "dv"))]
+    _run(kernels.library("small_seq_attn_bwd").vv_small_seq_attn_bwd, ops,
+         dims, scale, *ts)
+    LAUNCHES[f"small_seq_attn_bwd[{layout},N={B},D={D},S={Sq}]"] += 1
+    return tuple(grads)
+
+
+class _SmallSeqAttention(torch.autograd.Function):
+    """small_seq_attention (heads = 0) or small_seq_attention_tokenmajor
+    with its gradient: small_seq_attn and small_seq_attn_bwd on the card,
+    the plain versions on the CPU. Saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, heads):
+        # grad mode is off here: the wrappers' direct paths
+        out = small_seq_attention_tokenmajor(q, k, v, heads, scale) if heads \
+            else small_seq_attention(q, k, v, scale)
+        ctx.scale, ctx.heads = scale, heads
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return (*small_seq_attention_backward(q, k, v, out, dout, ctx.scale,
+                                              ctx.heads), None, None)
+
+
+def small_seq_attention(q, k, v, scale):
+    """Exact attention for short sequences over (B, H, S, D) input
+    (S <= 64, Sq != Sk allowed) with the small_seq_attn kernel
+    (plain version on the CPU); differentiable through small_seq_attn_bwd
+    when q, k or v requires grad."""
+    if _grad_wanted(q, k, v):
+        return _SmallSeqAttention.apply(q, k, v, scale, 0)
+    if not _on_card(q, k, v):
+        return small_seq_attention_ref(q, k, v, scale)
+    return _small_seq_forward(q, k, v, scale)
+
+
 def small_seq_attention_tokenmajor(q, k, v, heads: int, scale):
     """Self-attention over token-major (N, S, C) q/k/v, C = heads*d, with
     the small_seq_attn kernel reading and writing the token-major layout in
-    place (plain version on the CPU). Returns (N, S, C)."""
+    place (plain version on the CPU). Returns (N, S, C); differentiable
+    through small_seq_attn_bwd, whose gradients come back token-major."""
+    if _grad_wanted(q, k, v):
+        return _SmallSeqAttention.apply(q, k, v, scale, heads)
     if not _on_card(q, k, v):
-        N, S, C = q.shape
-        out = small_seq_attention_ref(_split_heads(q, heads),
-                                      _split_heads(k, heads),
-                                      _split_heads(v, heads), scale)
-        return out.permute(0, 2, 1, 3).reshape(N, S, C)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    return _small_seq(q, k, v, out, scale, "tokenmajor", heads)
+        return _merge_heads(small_seq_attention_ref(
+            *(_split_heads(t, heads) for t in (q, k, v)), scale))
+    return _small_seq_forward(q, k, v, scale, heads)
 
 
 # ---------------------------------------------------------------------------

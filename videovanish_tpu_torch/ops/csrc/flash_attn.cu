@@ -115,9 +115,9 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 uint16_t* __restrict__ o, int H, int Sq, int Sk, int D,
-                 long long osb, long long osh, long long oss,
-                 float scale_log2e) {
+                 uint16_t* __restrict__ o, float* __restrict__ lse, int H,
+                 int Sq, int Sk, int D, long long osb, long long osh,
+                 long long oss, float scale_log2e) {
   using C = FlashCfg<DK, BN, STAGES, SPLIT, NWG>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -429,6 +429,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       named_bar_sync(1, 256);
       if (wg == 1) inv[0] = ld_shared_f32(at), inv[1] = ld_shared_f32(at + 32);
     }
+    if constexpr (SPLIT == 1) {
+      // the backward's row statistics: log2 of the softmax denominator in
+      // the scaled log2 domain, so that P = exp2(s * scale_log2e - lse)
+      if (lse != nullptr && c4 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + row0 + 16 * warp + g + 8 * r;
+          if (row < Sq)
+            lse[(static_cast<long long>(b) * H + h) * Sq + row] =
+                fmaf(m_run[r], scale_log2e, log2f(inv[r]));
+        }
+      }
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) inv[r] = 1.f / (inv[r] == 0.f ? 1.f : inv[r]);
     uint16_t* ob = o + b * osb + h * osh;
@@ -450,9 +463,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int DK, int BN, int STAGES, int SPLIT, int NWG>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
-                 int H, int Sq, int Sk, int D, const long long* st,
-                 float scale_log2e, cudaStream_t stream) {
+int launch_flash(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int H, int Sq, int Sk, int D,
+                 const long long* st, float scale_log2e, cudaStream_t stream) {
   using C = FlashCfg<DK, BN, STAGES, SPLIT, NWG>;
   // boxes of 64 columns x a tile's rows of one head, 128-byte swizzle
   const cuuint32_t qbox[4] = {64, C::BM, 1, 1}, kvbox[4] = {64, BN, 1, 1};
@@ -468,7 +481,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<uint16_t*>(o), H, Sq, Sk, D, st[9], st[10],
+      tq, tk, tv, static_cast<uint16_t*>(o), lse, H, Sq, Sk, D, st[9], st[10],
       st[11], scale_log2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -488,22 +501,26 @@ extern "C" int vv_flash_supported(int dp) {
 }
 
 // q/k/v/o: bf16 (B, H, S, D) views with contiguous D; strides holds the
-// (batch, head, row) strides of q, k, v, o in elements (12 values).
-// Launches on `stream`, allocates nothing, returns 0, a CUDA error, or
-// 1000 + the CUresult of a refused tensor map.
+// (batch, head, row) strides of q, k, v, o in elements (12 values). lse:
+// null, or f32 (B, H, Sq) that receives each row's log-sum-exp in the
+// scaled log2 domain for flash_attn_bwd (head dims up to 160). Launches on
+// `stream`, allocates nothing, returns 0, a CUDA error, or 1000 + the
+// CUresult of a refused tensor map.
 extern "C" int vv_flash_attn_fwd(const void* q, const void* k, const void* v,
-                                 void* o, int B, int H, int Sq, int Sk, int D,
-                                 const long long* strides, float scale_log2e,
-                                 void* stream) {
+                                 void* o, float* lse, int B, int H, int Sq,
+                                 int Sk, int D, const long long* strides,
+                                 float scale_log2e, void* stream) {
   const int dp = (D + 15) / 16 * 16;
+  if (lse != nullptr && dp > 160)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dp) {
-    case 16:  return vv::launch_flash<16, 128, 4, 1, 1>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 48:  return vv::launch_flash<48, 128, 2, 1, 3>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 80:  return vv::launch_flash<80, 128, 2, 1, 2>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 160: return vv::launch_flash<160, 64, 2, 1, 2>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 256: return vv::launch_flash<256, 64, 2, 2, 2>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
-    case 512: return vv::launch_flash<512, 64, 1, 2, 2>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 16:  return vv::launch_flash<16, 128, 4, 1, 1>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 48:  return vv::launch_flash<48, 128, 2, 1, 3>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 80:  return vv::launch_flash<80, 128, 2, 1, 2>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 160: return vv::launch_flash<160, 64, 2, 1, 2>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 256: return vv::launch_flash<256, 64, 2, 2, 2>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 512: return vv::launch_flash<512, 64, 1, 2, 2>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
     default:  return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -23,23 +23,33 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vv_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEADERS = ("mma_bf16.cuh", "hopper.cuh")
+HEADERS = ("mma_bf16.cuh", "hopper.cuh", "attn_bwd.cuh")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# B, H, Sq, Sk, D, the strides, the scale times log2(e), the stream
+_DIMS = [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
+         ctypes.c_float, _P]
 # name -> (source, {C function: (restype, argtypes)})
 LIBRARIES = {
     "flash_attn": ("flash_attn.cu", {
-        "vv_flash_attn_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   ctypes.POINTER(ctypes.c_longlong),
-                                   ctypes.c_float, _P]),
+        # q, k, v, o, lse (or null)
+        "vv_flash_attn_fwd": (_I, [_P] * 5 + _DIMS),
         "vv_flash_supported": (_I, [_I]),
     }),
     "small_seq_attn": ("small_seq_attn.cu", {
-        "vv_small_seq_attn": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   ctypes.POINTER(ctypes.c_longlong),
-                                   ctypes.c_float, _P]),
+        "vv_small_seq_attn": (_I, [_P] * 4 + _DIMS),
         "vv_small_seq_supported": (_I, [_I, _I, _I]),
+    }),
+    "flash_attn_bwd": ("flash_attn_bwd.cu", {
+        # q, k, v, o, dO, dq, dk, dv, lse, delta (scratch)
+        "vv_flash_attn_bwd": (_I, [_P] * 10 + _DIMS),
+        "vv_flash_bwd_supported": (_I, [_I]),
+    }),
+    "small_seq_attn_bwd": ("small_seq_attn_bwd.cu", {
+        # q, k, v, o, dO, dq, dk, dv
+        "vv_small_seq_attn_bwd": (_I, [_P] * 8 + _DIMS),
+        "vv_small_seq_bwd_supported": (_I, [_I, _I, _I]),
     }),
 }
 
