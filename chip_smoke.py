@@ -117,10 +117,12 @@ warnings) and, where the toolkit has `cuobjdump`, the count of HGMMA (wgmma)
 instructions and the highest register in each flash instantiation's SASS,
 and the count of TMA loads (UTMALDG), cp.async copies (LDGSTS), ldmatrix
 and mma.sync instructions in each small_seq_attn instantiation's, and the
-mma.sync, ldmatrix and cp.async counts of each backward kernel; a flash
-instantiation without HGMMA, a small_seq_attn one with neither TMA loads
-nor cp.async copies, or a backward kernel that multiplies without
-mma.sync, fails the run.
+wgmma, TMA load, mma.sync and ldmatrix counts and highest register of
+each backward kernel; a flash instantiation without HGMMA, a
+small_seq_attn one with neither TMA loads nor cp.async copies, a
+flash_attn_bwd product kernel without HGMMA, or a backward kernel that
+reads tiles without UTMALDG (small_seq_attn_bwd's also without HMMA),
+fails the run.
 
 Any failure raises and exits non-zero.
 """
@@ -262,25 +264,40 @@ def check_small_seq_sass(lib_path) -> None:
 
 
 def check_bwd_sass(built) -> None:
-    """Print the mma.sync (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
-    instructions and the highest register of every backward kernel; fail
-    if one that multiplies has no HMMA."""
-    ops = ("HMMA", "LDSM", "LDGSTS")
+    """Print the wgmma (HGMMA), TMA load (UTMALDG), mma.sync (HMMA) and
+    ldmatrix (LDSM) instructions and the highest register of every
+    backward kernel; fail if a flash_attn_bwd product kernel (dK/dV or dQ)
+    has no HGMMA, a backward kernel that reads tiles (all but the delta
+    kernel) has no UTMALDG, or small_seq_attn_bwd's kernel has no HMMA."""
+    ops = ("HGMMA", "UTMALDG", "HMMA", "LDSM")
     for lib in ("flash_attn_bwd", "small_seq_attn_bwd"):
         stats = sass_stats(built[lib], ops)
         if stats is None:
-            print("[sass] cuobjdump not found: HMMA count not taken")
+            print("[sass] cuobjdump not found: HGMMA and UTMALDG counts not "
+                  "taken")
             return
         kerns = {fn: st for fn, st in stats.items() if "_kernel" in fn}
         if not kerns:
             raise RuntimeError(f"no kernels in {lib}'s SASS")
         for fn, (n, reg) in sorted(kerns.items()):
+            m = re.search(r"\d+([a-z_]+_kernel)((?:ILi\d+E(?:Li\d+E)*E)?)",
+                          fn)
+            name = m.group(1) if m else fn[:60]
+            args = re.findall(r"Li(\d+)E", m.group(2)) if m else []
             counts = ", ".join(f"{n[o]} {o}" for o in ops)
-            print(f"[sass] {lib} {fn[:60]}: {counts}, registers up to R{reg}")
-        missing = [fn for fn, (n, _) in kerns.items()
-                   if "delta" not in fn and n["HMMA"] == 0]
+            print(f"[sass] {lib} {name}"
+                  f"{'<' + ', '.join(args) + '>' if args else ''}: {counts}, "
+                  f"registers up to R{reg}")
+        tiles = {fn: n for fn, (n, _) in kerns.items() if "delta" not in fn}
+        missing = [fn for fn, n in tiles.items() if n["UTMALDG"] == 0]
+        if lib == "flash_attn_bwd":
+            missing += [fn for fn, n in tiles.items() if n["HGMMA"] == 0]
+        else:
+            missing += [fn for fn, n in tiles.items() if n["HMMA"] == 0]
         if missing:
-            raise RuntimeError(f"{lib} kernels without HMMA: {missing}")
+            raise RuntimeError(f"{lib} kernels without their TMA loads or "
+                               f"products (UTMALDG, and HGMMA for flash, "
+                               f"HMMA for small_seq): {missing}")
 
 
 def time_ms(fn, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
@@ -925,14 +942,11 @@ def grad_agreement(params, ref) -> dict:
     return out
 
 
-def run_train_phase(seed: int = 0):
-    """The DiffuEraser training step at full width on the card: the default
+def train_setup(seed: int = 0):
+    """The training phase's models and batch on the card: the default
     config's UNet (motion modules) and BrushNet, seeded with init_random_,
-    make_train_step with remat, one clip of TRAIN_CLIP latents; one
-    warm-up step, then TRAIN_STEPS on the same batch, t and noise. Checks
-    the warm-up step's gradients against `reference_grads`, finite losses,
-    the last below the first, and a finite gradient for every parameter.
-    Returns (launch counts of the timed steps, report)."""
+    one clip of TRAIN_CLIP latents with its t and noise. Returns (unet,
+    brushnet, batch, t, noise)."""
     import torch
     from videovanish_tpu_torch.config import default_config
     from videovanish_tpu_torch.models.diffueraser.blocks import init_random_
@@ -940,13 +954,9 @@ def run_train_phase(seed: int = 0):
         BrushNetModel,
     )
     from videovanish_tpu_torch.models.diffueraser.unet import UNetCondition
-    from videovanish_tpu_torch.ops import attention as A
-    from videovanish_tpu_torch.train import make_train_step
 
     cfg = default_config().diffueraser
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     with torch.device("cuda"):
         unet = UNetCondition(4, 4, cfg.block_out_channels,
                              cfg.layers_per_block, cfg.attention_head_dim,
@@ -956,8 +966,6 @@ def run_train_phase(seed: int = 0):
                                  cfg.cross_attention_dim)
     init_random_(unet, gen)
     init_random_(brushnet, gen)
-    n_unet = sum(p.numel() for p in unet.parameters())
-    n_brush = sum(p.numel() for p in brushnet.parameters())
     B, T, h, w = TRAIN_CLIP
     batch = {
         "latents": torch.randn(B, T, h, w, 4, generator=gen, device="cuda"),
@@ -969,6 +977,27 @@ def run_train_phase(seed: int = 0):
                                 generator=gen, device="cuda")}
     t = torch.randint(0, 1000, (B,), generator=gen, device="cuda")
     noise = torch.randn(batch["latents"].shape, generator=gen, device="cuda")
+    return unet, brushnet, batch, t, noise
+
+
+def run_train_phase(seed: int = 0):
+    """The DiffuEraser training step at full width on the card: the default
+    config's UNet (motion modules) and BrushNet, seeded with init_random_,
+    make_train_step with remat, one clip of TRAIN_CLIP latents; one
+    warm-up step, then TRAIN_STEPS on the same batch, t and noise. Checks
+    the warm-up step's gradients against `reference_grads`, finite losses,
+    the last below the first, and a finite gradient for every parameter.
+    Returns (launch counts of the timed steps, report)."""
+    import torch
+    from videovanish_tpu_torch.ops import attention as A
+    from videovanish_tpu_torch.train import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    unet, brushnet, batch, t, noise = train_setup(seed)
+    n_unet = sum(p.numel() for p in unet.parameters())
+    n_brush = sum(p.numel() for p in brushnet.parameters())
+    B, T, h, w = TRAIN_CLIP
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     print(f"[train] UNet {n_unet / 1e6:.1f} M + BrushNet {n_brush / 1e6:.1f}"

@@ -396,10 +396,12 @@ def _storage_views(gen, B, H, Sq, Sk, D):
 
 
 def test_flash_bwd_matches_plain(gen):
-    """flash_attn_bwd's edges: key tails of 1 and 33 (64-key blocks), Sq = 1
-    and query tails (64-query blocks), D = 40/80/160, the last head of
-    token-major storage, and a dO whose D is not contiguous (copied into
-    the kernel's layout)."""
+    """flash_attn_bwd's edges: key tails of 1, 33, 127, 129 and 257 (the
+    dK/dV pass's 128-key blocks, 64 at D = 160, and the dQ pass's 64-key
+    steps), Sq = 1 and query tails (64-query steps, 32 at D = 160; the dQ
+    pass's 128-query blocks), query blocks that wrap the 3-slot ring twice,
+    D = 40/80/160, the last head of token-major storage, and a dO whose D
+    is not contiguous (copied into the kernel's layout)."""
     def fn(q, k, v):
         return A.flash_attention(q, k, v, q.shape[-1] ** -0.5)
 
@@ -418,14 +420,19 @@ def test_flash_bwd_matches_plain(gen):
            (plain, 1, 2, 256, 256, 160), (plain, 1, 2, 64, 1, 40),
            (plain, 1, 2, 90, 33, 160), (plain, 2, 2, 1, 300, 80),
            (plain, 1, 1, 1, 77, 40), (plain, 1, 1, 130, 200, 40),
+           (plain, 1, 2, 389, 127, 40), (plain, 2, 1, 200, 129, 160),
+           (plain, 1, 2, 130, 257, 80), (plain, 2, 2, 1, 129, 160),
            (storage, 2, 3, 150, 77, 40), (storage, 1, 2, 65, 129, 160),
+           (storage, 1, 2, 389, 257, 40),
            (strided_dout, 1, 2, 100, 77, 80)],
           lambda f, *shape: f(*shape))
 
 
 def test_small_seq_bwd_matches_plain(gen):
     """small_seq_attn_bwd's edges: key tails of 1 and 33, Sq = 1, S = 22
-    and 64, both layouts, the last head of token-major storage, and a dO
+    and 64 (at D = 160 a one-slot ring), both layouts, the last head of
+    token-major storage, units of 4 and 2 heads with a head group cut by H,
+    B*H large enough that every persistent CTA walks many units, and a dO
     whose D is not contiguous."""
     def fn(q, k, v):
         return A.small_seq_attention(q, k, v, q.shape[-1] ** -0.5)
@@ -451,7 +458,10 @@ def test_small_seq_bwd_matches_plain(gen):
     _each([(plain, 5, 3, 22, 22, 40), (plain, 7, 2, 17, 30, 80),
            (plain, 3, 4, 64, 64, 160), (plain, 9, 1, 33, 1, 80),
            (plain, 4, 2, 20, 33, 40), (plain, 4, 2, 1, 64, 160),
+           (plain, 300, 3, 1, 1, 80), (plain, 150, 3, 64, 17, 160),
            (tokenmajor, 37, 22, 8, 40), (tokenmajor, 10, 64, 2, 160),
+           (tokenmajor, 700, 22, 8, 40), (tokenmajor, 300, 22, 2, 160),
+           (tokenmajor, 200, 22, 6, 80),
            (storage, 6, 4, 22, 22, 80), (storage, 3, 2, 64, 64, 160),
            (strided_dout, 5, 2, 22, 22, 40)],
           lambda f, *shape: f(*shape))

@@ -1,13 +1,11 @@
 // Shared pieces of the attention backward kernels (flash_attn_bwd.cu,
-// small_seq_attn_bwd.cu): the strides of their eight operands, cp.async
-// row loads into padded shared-memory tiles, and the fragment addressing
-// of mma.sync m16n8k16 over those tiles.
+// small_seq_attn_bwd.cu): the strides of their eight operands, and (for
+// small_seq_attn_bwd) the fragment addressing of mma.sync m16n8k16 over
+// padded shared-memory tiles and the fragment stores of its results.
 //
-// A tile holds rows of one (batch, head) slice, DK columns (the head dim
-// padded to 16) at a pitch of DK + 8 elements, so the 8 rows of one
-// ldmatrix phase start in different bank groups. Rows past the sequence
-// and columns past D are zero-filled, so padded keys and queries add
-// nothing to a product.
+// A tile holds rows of one (batch, head) slice at a pitch of LD elements.
+// Rows past the sequence and columns past D arrive as zeros (TMA), so
+// padded keys and queries add nothing to a product.
 #pragma once
 
 #include "hopper.cuh"
@@ -21,32 +19,10 @@ struct BwdStrides {
 };
 enum { kQ = 0, kK, kV, kO, kDO, kDQ, kDK, kDV };
 
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + n) of a slice (row stride rs elements) into the tile at
-// dst (pitch LD elements), DK / 8 16-byte chunks a row, by threads
-// tid, tid + nthreads, ...; rows at or past S and chunks past D are
-// zero-filled without a read. Completes at cp_async_wait_all.
-template <int DK, int LD>
-__device__ __forceinline__ void load_rows(uint32_t dst, const uint16_t* src,
-                                          long long rs, int r0, int n, int S,
-                                          int D, int tid, int nthreads) {
-  constexpr int CPR = DK / 8;
-  for (int i = tid; i < n * CPR; i += nthreads) {
-    const int r = i / CPR, c = i - r * CPR;
-    const bool ok = r0 + r < S && c * 8 < D;
-    const uint16_t* p = ok ? src + (r0 + r) * rs + c * 8 : src;
-    cp_async_16(dst + (r * LD + c * 8) * 2, p, ok);
-  }
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // Lane addresses into a tile of pitch LD (elements) whose row 0 is at
@@ -71,16 +47,6 @@ __device__ __forceinline__ uint32_t bt_rows(uint32_t tile, int LD, int lane) {
 }
 __device__ __forceinline__ uint32_t at_rows(uint32_t tile, int LD, int lane) {
   return tile + (((lane & 7) + ((lane >> 4) & 1) * 8) * LD + ((lane >> 3) & 1) * 8) * 2;
-}
-
-// C fragments of n-tiles 2j and 2j + 1 (f32) as the bf16 A fragment of
-// k-step j: a C row block is an A row block, two n-tiles one k-step
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_f32(c0[0], c0[1]);
-  a[1] = pack_f32(c0[2], c0[3]);
-  a[2] = pack_f32(c1[0], c1[1]);
-  a[3] = pack_f32(c1[2], c1[3]);
 }
 
 // acc[NT][4] (16 rows x NT * 8 columns, C layout) times `mul`, as bf16

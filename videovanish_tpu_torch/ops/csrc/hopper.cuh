@@ -166,7 +166,7 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
-// one specialisation per shape the flash kernel uses
+// one specialisation per shape the flash kernels (forward and backward) use
 template <>
 struct WgmmaSS<64, false> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
@@ -252,6 +252,20 @@ struct WgmmaSS<128, true> {
 };
 
 template <>
+struct WgmmaSS<32, false> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
 struct WgmmaRS<16> {
   static __device__ __forceinline__ void mma(float (&d)[8],
                                              const uint32_t (&a)[4],
@@ -261,6 +275,22 @@ struct WgmmaRS<16> {
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<40> {
+  static __device__ __forceinline__ void mma(float (&d)[20],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
@@ -411,6 +441,16 @@ static int make_map(CUtensorMap* map, const void* ptr, int B, int H, int S,
                     CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  // cuTensorMapEncodeTiled needs a current context, which a thread that
+  // has made no runtime call yet lacks (autograd runs a backward on its own
+  // thread, and a backward kernel's first call there may be this one:
+  // without it the encode fails with CUDA_ERROR_INVALID_CONTEXT)
+  static thread_local bool bound = false;
+  if (!bound) {
+    const cudaError_t err = cudaFree(nullptr);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bound = true;
+  }
   const int sizes[3] = {S, H, B};
   const long long el[3] = {st[2], st[1], st[0]};
   cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), 0, 0, 0};
