@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (videovanish_tpu_torch) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (videovanish_tpu_torch) on the GPUs
+of one machine (one is enough).
 
     python3 chip_smoke.py
 
@@ -56,6 +57,27 @@
    kernel instance request 0 launched is launched again. Records the bf16
    prior's drift from the same weights run in f32 (PSNR and max |diff|
    inside the mask; a record, not a gate);
+5a. the mesh: the port's multi-GPU path (`core/mesh.py`, ring attention
+   in `parallel/`) at world size torch.cuda.device_count(): at 1 in this
+   process over a one-rank NCCL process group on a local store (destroyed
+   after the phase), above 1 one spawned rank a card. The request:
+   `run_infill_on_frames` on 24 frames at 1280x720 with the prior
+   computed, at the default config, first on one device (cold, then warm)
+   and then through a ("data", "model") mesh over every rank, passed in
+   explicitly since at one rank the pipeline's own policy builds none
+   (cold, then warm: its kernel launches are the `launches_mesh_phase` of
+   the kernel rows). Checks the output as above, that a window shards
+   exactly where the data axis divides it, and the mesh run against the
+   one-device run: equal outside the feathered mask, inside it a mean
+   |diff| within 2.0 and a max within 64 (the JAX dry run's bounds; at one
+   rank every sharding is a no-op and it reports whether the two are
+   bitwise equal). Then `ring_attention` on the card over the mesh's data
+   group at the request's temporal shapes, (B*S, H, T, D) = (8160, 8, 24,
+   40) in f32, each rank holding its block of T, against the plain
+   attention over the whole T in f32 (max |err| within 2e-5), both timed
+   (the plain version over all of T on one card). Prints the world size, the mesh, the windows run
+   sharded and whole, the warm wall times and peaks of both runs, and the
+   NCCL version;
 6. SAM2 masking: a fourth request, `run_sam2_on_frames` on 24 frames at
    1280x720 with the default Sam2Config (Hiera-L at 1024x1024, 7 memory
    slots, 16 object pointers) and seeded random weights, two objects (a
@@ -109,8 +131,9 @@
    requests with the prior passed in, the SAM2 request and the training
    phase (each instance is launched by one of them; `launches_train_phase`,
    `launches_prior_request`,
-   `launches_sam2_request`, `launches_files_phase` (the chunked CLI run)
-   and `launches_weights_phase` give the other runs apart).
+   `launches_sam2_request`, `launches_files_phase` (the chunked CLI run),
+   `launches_weights_phase` and `launches_mesh_phase` give the other runs
+   apart).
 
 After the build it prints each kernel's `ptxas` lines (registers, spills,
 warnings) and, where the toolkit has `cuobjdump`, the count of HGMMA (wgmma)
@@ -1301,6 +1324,205 @@ def run_prior_request(launches_0, seed: int = 0):
                     "bf16_prior_drift": drift}
 
 
+# the mesh phase: run_infill_on_frames through the port's ("data", "model")
+# mesh over every card, against the single-device run of the same request
+MESH_REQUEST = (24, 720, 1280)  # 24 divides every data axis up to 4, 6, 8
+# the ring at the temporal shapes of that request, 544x960 inference: level
+# 0's (B*S, H, T, D) with T the whole 24-frame clip, f32
+RING_SHAPE = (8160, 8, 24, 40)
+RING_TOL = 2e-5
+RING_REPS = 20
+# above one rank: the JAX dry run's bounds inside the feathered mask (the
+# ring reorders f32 sums); outside it every pixel is the input's
+MESH_MEAN_TOL, MESH_MAX_TOL = 2.0, 64
+
+
+def mesh_rank(seed: int = 0) -> dict:
+    """One rank of the mesh phase, in an initialized NCCL world: the
+    request on one device, twice, then through a mesh over every rank,
+    twice (the second of each pair timed warm, the launch counts read
+    around the mesh's second run), held against each other; then the ring
+    on the card against the plain f32 attention. Returns the report; its
+    "launches" are this rank's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from videovanish_tpu_torch.config import default_config
+    from videovanish_tpu_torch.core.mesh import DATA_AXIS, make_mesh
+    from videovanish_tpu_torch.ops import attention as A
+    from videovanish_tpu_torch.parallel import ring_attention
+    from videovanish_tpu_torch.pipeline import infill
+
+    cfg = default_config()
+    T, H, W = MESH_REQUEST
+    frames, masks, _ = synthetic_request(T, H, W, seed + 5)
+    world = dist.get_world_size()
+    latents = []
+
+    def run():
+        infill.get_model("2-Step", "cuda").latent_hook = latents.append
+        latents.clear()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = infill.run_infill_on_frames(
+            list(frames), list(masks), propainer_frames=None, device="cuda")
+        torch.cuda.synchronize()
+        return np.stack(out), time.perf_counter() - t0
+
+    # one device: a cold run (cuDNN's plan searches), then the warm one
+    infill.set_config(cfg)
+    infill.set_mesh(None)
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    single, single_s = run()
+    single_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the mesh: the same weights (the same seed), cold, then the warm run
+    # whose kernel launches are counted
+    mesh = make_mesh("cuda")
+    infill.set_mesh(mesh)
+    run()
+    A.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, mesh_s = run()
+    counts = dict(A.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = dict(infill.video_inpainting_sd.window_split)
+    dp = mesh[DATA_AXIS].size()
+    if (dp == 1 and split["sharded"]) or (dp > 1 and split["whole"]):
+        raise RuntimeError(f"windows {split} on a data axis of {dp}: a "
+                           f"window shards exactly when the axis divides "
+                           f"it, and the clip length is rounded up to it")
+    check_request(list(out), frames, masks, latents, cfg)
+    inside = ~outside_feathered_mask(masks, cfg)
+    d = np.abs(out.astype(np.int16) - single.astype(np.int16))
+    if d[~inside].max(initial=0) > 0:
+        raise RuntimeError("mesh run differs from the single-device run "
+                           "outside the feathered mask")
+    in_mean, in_max = float(d[inside].mean()), int(d[inside].max())
+    if in_mean > MESH_MEAN_TOL or in_max > MESH_MAX_TOL:
+        raise RuntimeError(f"mesh run against the single-device run inside "
+                           f"the feathered mask: mean {in_mean:.3f} "
+                           f"(limit {MESH_MEAN_TOL}), max {in_max} "
+                           f"(limit {MESH_MAX_TOL})")
+
+    # the ring on the card over the mesh's data group: every rank draws the
+    # same q, k, v and takes its block of the T axis
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device="cuda")
+               for _ in range(3))
+    group = mesh.get_group(DATA_AXIS)
+    scale = RING_SHAPE[-1] ** -0.5
+    i, t = mesh.get_local_rank(DATA_AXIS), RING_SHAPE[2] // dp
+    ql, kl, vl = (x[:, :, i * t:(i + 1) * t].contiguous() for x in (q, k, v))
+    got = ring_attention(ql, kl, vl, group, scale)
+    ref = A.plain_attention(q, k, v, scale)[:, :, i * t:(i + 1) * t]
+    ring_err = float((got - ref).abs().max())
+    if not ring_err <= RING_TOL:
+        raise RuntimeError(f"ring attention on the card: max |err| "
+                           f"{ring_err:.3g} (limit {RING_TOL})")
+    # a fixed count of ring calls, the same on every rank (each call's
+    # sends pair with the next rank's receives)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    dist.barrier()
+    start.record()
+    for _ in range(RING_REPS):
+        ring_attention(ql, kl, vl, group, scale)
+    end.record()
+    torch.cuda.synchronize()
+    ring_ms = start.elapsed_time(end) / RING_REPS
+    plain_ms = time_ms(lambda: A.plain_attention(q, k, v, scale))
+    del q, k, v, ql, kl, vl, got, ref
+    nccl = torch.cuda.nccl.version()
+    infill.get_model("2-Step", "cuda").latent_hook = None
+    infill.set_config(cfg)  # later phases decide their own mesh (none)
+    torch.cuda.empty_cache()
+    return {"world_size": world, "mesh": dict(zip(mesh.mesh_dim_names,
+                                                  mesh.shape)),
+            "frames": [T, H, W], "windows": split,
+            "single_seconds": single_s, "mesh_seconds": mesh_s,
+            "single_peak_gib": single_peak, "peak_gib": peak,
+            "bitwise": bool((d == 0).all()),
+            "inside_mean_abs_diff": in_mean, "inside_max_abs_diff": in_max,
+            "nccl": ".".join(map(str, nccl)) if isinstance(nccl, tuple)
+            else str(nccl),
+            "ring": {"shape": list(RING_SHAPE), "max_abs_err": ring_err,
+                     "ms": ring_ms, "plain_ms": plain_ms},
+            "launches": counts}
+
+
+def _mesh_rank_entry(rank, world, port, seed, out_path):
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            device_id=torch.device("cuda", rank))
+    try:
+        report = mesh_rank(seed)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(report, f)
+
+
+def run_mesh_phase(seed: int = 0):
+    """The mesh phase at world size torch.cuda.device_count(): in this
+    process over a one-rank NCCL world on a local store at 1, one spawned
+    rank a card above. Returns (rank 0's launch counts of the mesh run,
+    report)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    if world == 1:
+        dist.init_process_group("nccl", store=dist.HashStore(),
+                                world_size=1, rank=0,
+                                device_id=torch.device("cuda", 0))
+        try:
+            report = mesh_rank(seed)
+        finally:
+            dist.destroy_process_group()
+    else:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        out_path = os.path.join("build", "mesh_phase.json")
+        os.makedirs("build", exist_ok=True)
+        mp.start_processes(_mesh_rank_entry,
+                           args=(world, port, seed, out_path),
+                           nprocs=world, start_method="spawn")
+        with open(out_path) as f:
+            report = json.load(f)
+    counts = report.pop("launches")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] world size {report['world_size']}, mesh "
+          f"{report['mesh']}, NCCL {report['nccl']}; "
+          f"{'x'.join(map(str, report['frames']))} with the prior computed: "
+          f"windows sharded {report['windows']['sharded']}, run whole "
+          f"{report['windows']['whole']}; warm wall mesh "
+          f"{report['mesh_seconds']:.3f} s against one device "
+          f"{report['single_seconds']:.3f} s; peak "
+          f"{report['peak_gib']:.2f} GiB (one device "
+          f"{report['single_peak_gib']:.2f}); "
+          f"{'bitwise equal' if report['bitwise'] else 'not bitwise'} to "
+          f"one device (inside the feathered mask mean |diff| "
+          f"{report['inside_mean_abs_diff']:.4f}, max "
+          f"{report['inside_max_abs_diff']}); ring {RING_SHAPE} f32 max "
+          f"|err| {report['ring']['max_abs_err']:.3g} (limit {RING_TOL}), "
+          f"{report['ring']['ms']:.3f} ms against plain "
+          f"{report['ring']['plain_ms']:.3f} ms; phase "
+          f"{report['phase_s']:.1f} s", flush=True)
+    return counts, report
+
+
 SAM2_STAGES = ("encode", "decode", "memory_encode")
 
 
@@ -2152,6 +2374,7 @@ def main(argv=None) -> int:
     counts, launches_0, report = run_main_path(args.seed)
     counts_2, prior_report = run_prior_request(launches_0, args.seed)
     report.append(prior_report)
+    counts_m, mesh_report = run_mesh_phase(args.seed)
     counts_3, sam2_report = run_sam2_request(args.seed)
     report.append(sam2_report)
     counts_5, files_report = run_files_phase(launches_0, args.seed)
@@ -2165,13 +2388,14 @@ def main(argv=None) -> int:
         row["launches_sam2_request"] = counts_3.get(row["name"], 0)
         row["launches_weights_phase"] = counts_4.get(row["name"], 0)
         row["launches_files_phase"] = counts_5.get(row["name"], 0)
+        row["launches_mesh_phase"] = counts_m.get(row["name"], 0)
     for row in rows + bwd_rows:
         row["launches_train_phase"] = counts_t.get(row["name"], 0)
     for row in bwd_rows:
         # the training step is the backward kernels' main path
         row["launches"] = row["launches_train_phase"]
         for phase in ("prior_request", "sam2_request", "weights_phase",
-                      "files_phase"):
+                      "files_phase", "mesh_phase"):
             row[f"launches_{phase}"] = 0
     train_missing = sorted(set(counts_t) - {r["name"] for r in bwd_rows}
                            - {r["name"] for r in rows}
@@ -2191,12 +2415,22 @@ def main(argv=None) -> int:
         raise RuntimeError(f"SAM2 kernel instances not launched by the SAM2 "
                            f"request: {sam2_missing}")
     unchecked = sorted((set(counts) | set(counts_2) | set(counts_3)
-                        | set(counts_4) | set(counts_5) | set(counts_t))
+                        | set(counts_4) | set(counts_5) | set(counts_t)
+                        | set(counts_m))
                        - {r["name"] for r in rows})
     if unchecked:
         raise RuntimeError(f"main-path kernel instances without a "
                            f"kernel-phase check: {unchecked}")
+    mesh_missing = sorted(
+        k for k, n in launches_0.items() if n and not counts_m.get(k)
+        # a sharded window's temporal attention is the ring, not small_seq
+        and not (mesh_report["windows"]["sharded"]
+                 and k.startswith("small_seq_attn")))
+    if mesh_missing:
+        raise RuntimeError(f"kernel instances of request 0 not launched "
+                           f"by the mesh run: {mesh_missing}")
     print(json.dumps({"kernels": rows, "main_path": report,
+                      "mesh_phase": mesh_report,
                       "train_phase": train_report,
                       "weights_phase": weights_report,
                       "files_phase": files_report}))

@@ -23,7 +23,7 @@ SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  (ROOT / "videovanish_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py", "scripts/profile_port_infill.py",
        "scripts/profile_port_sam2.py", "scripts/chunk_prior_ab.py",
-       "scripts/sam2_memory_probe.py"]
+       "scripts/sam2_memory_probe.py", "scripts/mesh_phase.py"]
 
 
 def _imported(tree):

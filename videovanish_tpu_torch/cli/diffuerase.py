@@ -7,6 +7,13 @@ video is given.
 
     python -m videovanish_tpu_torch.cli.diffuerase --color_video in.mkv \\
         --mask_video mask.mkv
+
+On N cards, one process per card:
+
+    torchrun --nproc_per_node=N -m videovanish_tpu_torch.cli.diffuerase ...
+
+Every rank computes (the frames shard over the mesh of
+`pipeline/infill.py`) and rank 0 alone writes the output.
 """
 from __future__ import annotations
 
@@ -14,6 +21,9 @@ import argparse
 import os
 
 from videovanish_tpu_torch.cli import device_from_env
+from videovanish_tpu_torch.core.mesh import (
+    barrier, initialize_distributed, is_writer,
+)
 from videovanish_tpu_torch.pipeline import infill
 from videovanish_tpu_torch.video import (
     load_video_frames_from_path, probe_video, write_video_frames_to_path,
@@ -50,6 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     device = device_from_env()
+    initialize_distributed(device_type=device)
     assert os.path.isfile(args.color_video), "input video missing"
     out_video = args.out or (args.color_video + "_vanished.mkv")
 
@@ -89,7 +100,9 @@ def main(argv=None) -> None:
         frames, mask_frames, mask_dilation_iter=args.mask_dilation_iter,
         propainer_frames=prior_frames, max_img_size=args.max_img_size,
         device=device)
-    write_video_frames_to_path(out_video, out_frames, fps, H0, W0)
+    if is_writer():
+        write_video_frames_to_path(out_video, out_frames, fps, H0, W0)
+    barrier()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Config tree of the port: the SAM2, ProPainter, DiffuEraser, infill and
-chunking settings.
+"""Config tree of the port: the SAM2, ProPainter, DiffuEraser, infill,
+chunking and mesh settings.
 
 A copy of the matching dataclasses of videovanish_tpu/config.py with the
 same defaults (the port keeps its own copy and imports nothing of the JAX
@@ -10,6 +10,18 @@ SD1.5 ones; `tiny_config` is the CPU-runnable smoke size.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical mesh axes over the ranks of torch.distributed, resolved
+    when the mesh is built (`core/mesh.py`).
+
+    data  : frames and temporal windows (data and sequence parallelism)
+    model : attention heads (tensor parallelism)
+    """
+    data: int = -1  # -1: every rank the model axis leaves
+    model: int = 1
 
 
 @dataclass(frozen=True)
@@ -131,6 +143,7 @@ class VVConfig:
     diffueraser: DiffuEraserConfig = field(default_factory=DiffuEraserConfig)
     infill: InfillConfig = field(default_factory=InfillConfig)
     chunking: ChunkingConfig = field(default_factory=ChunkingConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 def default_config() -> VVConfig:

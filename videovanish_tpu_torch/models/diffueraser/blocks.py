@@ -10,7 +10,7 @@ whatever the activation type.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -127,17 +127,28 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, out_dim or query_dim)])
 
     def forward(self, x, context=None, t_frames: Optional[int] = None,
-                cache: Optional[AttentionCache] = None):
+                cache: Optional[AttentionCache] = None,
+                attn_fn: Optional[Callable] = None):
         if t_frames is not None:
             # temporal self-attention: (B*T, S, C) in and out; the tokens
             # cross into (B*S, T, C) once before the projections and back
-            # once after the output projection
+            # once after the output projection. attn_fn, if given, replaces
+            # the attention op on (B*S, heads, T, head_dim) q, k, v (ring
+            # attention over frames split across ranks)
             BT, S, C = x.shape
             B = BT // t_frames
             h = x.reshape(B, t_frames, S, C).transpose(1, 2) \
                 .reshape(B * S, t_frames, C)
-            out = attention_tokenmajor(self.to_q(h), self.to_k(h),
-                                       self.to_v(h), self.heads)
+            q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
+            if attn_fn is None:
+                out = attention_tokenmajor(q, k, v, self.heads)
+            else:
+                def split(t):
+                    return t.view(B * S, t_frames, self.heads,
+                                  self.head_dim).transpose(1, 2)
+
+                out = attn_fn(split(q), split(k), split(v)).transpose(1, 2) \
+                    .reshape(B * S, t_frames, -1)
             out = self.to_out[0](out)
             return out.reshape(B, S, t_frames, -1).transpose(1, 2) \
                 .reshape(BT, S, -1)

@@ -13,6 +13,15 @@ prior frames go in; inpainted frames at the inference resolution come out:
   - blend the windows' latents in f32 with linear cross-fade ramps;
   - decode each frame as soon as its last window is blended.
 
+With a mesh (`core/mesh.py`; one process per card, every rank given the
+same request) the frames shard over its "data" axis: each rank encodes its
+block of every 8-frame chunk, denoises its block of every window whose
+length divides by the axis (the motion modules then run ring attention,
+`parallel/ring_attention.py`; a window that does not divide runs whole on
+every rank, as the JAX package replicates it) and decodes its block of
+every decode batch, and each result is all-gathered, so every rank blends
+and returns the whole video. The weights are the same on every rank.
+
 On the card weights and activations are bf16; normalisation statistics,
 softmax, the scheduler and the blend accumulators stay f32. On the CPU
 everything is f32. Noise is a pure function of the global frame index, so
@@ -27,6 +36,7 @@ device work still queued bills to whichever stage next waits for it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 import time
 from typing import Callable, Optional
@@ -39,6 +49,7 @@ from videovanish_tpu_torch.config import DiffuEraserConfig, default_config
 from videovanish_tpu_torch.convert import (
     jax_params_to_state_dict, published_state_dict,
 )
+from videovanish_tpu_torch.core.mesh import data_coords, run_sharded
 from videovanish_tpu_torch.models.diffueraser.blocks import (
     AttentionCache, cast_for_inference, init_random_,
 )
@@ -49,6 +60,7 @@ from videovanish_tpu_torch.models.diffueraser.scheduler import (
 from videovanish_tpu_torch.models.diffueraser.unet import UNetCondition
 from videovanish_tpu_torch.models.diffueraser.vae import AutoencoderKL
 from videovanish_tpu_torch.ops.morphology import binary_dilation
+from videovanish_tpu_torch.parallel.ring_attention import sequence_shard
 from videovanish_tpu_torch.ops.resize import (
     host_resize_bilinear_u8, host_resize_nearest_2d, plan_long_side,
     resize_nearest_2d,
@@ -153,11 +165,13 @@ class DiffuEraser:
     weights at PyTorch's default scale. `load_checkpoint` reads it from the
     config's files.
     noise: the noise provider (default `frame_noise(seed)`).
+    mesh: a ("data", "model") DeviceMesh to shard the frames over, or None.
     """
 
     def __init__(self, config: Optional[DiffuEraserConfig] = None,
                  params=None, seed: int = 0, ckpt: str = "2-Step",
-                 device="cuda", noise: Optional[NoiseProvider] = None):
+                 device="cuda", noise: Optional[NoiseProvider] = None,
+                 mesh=None):
         self.cfg = config or default_config().diffueraser
         self.ckpt = "2-Step" if ckpt is None else ckpt
         m_steps = re.match(r"^(\d+)-Step$", str(self.ckpt))
@@ -172,6 +186,11 @@ class DiffuEraser:
         self.schedule = NoiseSchedule()
         # called with each batch of blended latents just before it decodes
         self.latent_hook: Optional[Callable[[torch.Tensor], None]] = None
+        self.mesh = mesh
+        self.shard = sequence_shard(mesh) if data_coords(mesh)[1] > 1 \
+            else None
+        # the last forward's windows: {"sharded": n, "whole": n}
+        self.window_split = {"sharded": 0, "whole": 0}
 
         cfg = self.cfg
         lat = cfg.sample_channels
@@ -229,10 +248,12 @@ class DiffuEraser:
             .permute(0, 2, 3, 1)
 
     def _denoise_window(self, prior_lat, masked_lat, mask_lat, noise,
-                        prompt_emb, guidance: float = 0.0) -> torch.Tensor:
+                        prompt_emb, guidance: float = 0.0, shard=None,
+                        t_frames: Optional[int] = None) -> torch.Tensor:
         """One temporal window of PCM few-step denoising. All (T, C, h8, w8)
         f32; prompt_emb (77, D). guidance > 0 runs classifier-free
-        guidance against the null-text embedding."""
+        guidance against the null-text embedding. With `shard` the inputs
+        are this rank's block of a window of t_frames frames."""
         cfg, dt = self.cfg, self.dtype
         T = prior_lat.shape[0]
         steps = pcm_timesteps(cfg.num_inference_steps,
@@ -262,8 +283,8 @@ class DiffuEraser:
                     else:
                         cache.replay = True
                 bd, bm, bu = feats[which]
-                return self.unet(x.to(dt), t_vec, cond, T, bd, bm, bu,
-                                 cache=cache)
+                return self.unet(x.to(dt), t_vec, cond, t_frames or T, bd,
+                                 bm, bu, cache=cache, shard=shard)
 
             eps = eps_for(txt, "c")
             if use_cfg:
@@ -358,17 +379,24 @@ class DiffuEraser:
         fr_p, mk_p = padded(frames), padded(masks)
         pf_p = None if pf is None else padded(pf)
         lat_c, mlat_c, prior_c = [], [], []
+        def encode_masked(fr, m):
+            x = fr.float() / 255.0
+            return self._encode(x * (1.0 - m[..., None].float()))
+
+        def encode_prior(pf):
+            return self._encode(pf.float() / 255.0)
+
         with stage_timer("dn.upload_encode", frames=T, wire="rgb",
                          bytes_up=bytes_up):
             for i in range(0, T + pad, chunk):
                 m = mk_p[i:i + chunk]
-                x = fr_p[i:i + chunk].float() / 255.0
-                lat_c.append(self._encode(x * (1.0 - m[..., None].float())))
+                lat_c.append(run_sharded(self.mesh, encode_masked,
+                                         fr_p[i:i + chunk], m))
                 mlat_c.append(
                     (resize_nearest_2d(m, h8, w8) > 0).float()[:, None])
                 if pf_p is not None:
-                    prior_c.append(
-                        self._encode(pf_p[i:i + chunk].float() / 255.0))
+                    prior_c.append(run_sharded(self.mesh, encode_prior,
+                                               pf_p[i:i + chunk]))
             masked_lat = torch.cat(lat_c)
             m_lat = torch.cat(mlat_c)
             prior_lat = torch.cat(prior_c) if prior_c else masked_lat
@@ -420,7 +448,7 @@ class DiffuEraser:
                 z_c = acc[i:i + nb] / wsum[i:i + nb]
                 if self.latent_hook is not None:
                     self.latent_hook(z_c)
-                u8 = self._decode(z_c)
+                u8 = run_sharded(self.mesh, self._decode, z_c)
                 end = min(i + nb, T_out)
                 start = decoded_upto
                 if roi is None:
@@ -434,12 +462,21 @@ class DiffuEraser:
             decode_s += time.perf_counter() - t0
 
         t_windows = time.perf_counter()
+        n_data = data_coords(self.mesh)[1]
+        self.window_split = {"sharded": 0, "whole": 0}
         for wi, (s, L) in enumerate(plan):
             prog(10 + 70 * wi / max(1, len(plan)),
                  f"denoising window {wi + 1}/{len(plan)}")
-            z = self._denoise_window(
+            # frames split over "data" only where the window divides by it
+            # (run_sharded runs it whole on every rank otherwise)
+            ring = n_data > 1 and L % n_data == 0
+            self.window_split["sharded" if ring else "whole"] += 1
+            z = run_sharded(self.mesh, functools.partial(
+                self._denoise_window, prompt_emb=prompt_emb,
+                guidance=float(guidance_scale or 0.0),
+                shard=self.shard if ring else None, t_frames=L),
                 prior_lat[s:s + L], masked_lat[s:s + L], m_lat[s:s + L],
-                noise[s:s + L], prompt_emb, float(guidance_scale or 0.0))
+                noise[s:s + L])
             bw = window_blend_weights(
                 L, min(cfg.clip_overlap, L - 1) if L > 1 else 0,
                 # with a latent carry the first edge ramps up from the

@@ -15,8 +15,11 @@ checkpoint):
 
 The temporal attention is over the frames of a window (22 at the default
 clip length); on the card it runs the small_seq_attn kernel in place on
-the token-major projections. The ring-attention branch of the JAX package
-(sequence parallelism over several devices) is not ported.
+the token-major projections. With a `SequenceShard` (the frames of the clip
+split over the mesh's "data" axis, `parallel/ring_attention.py`) each rank
+holds a block of every clip's frames: the attention runs as ring attention,
+the GroupNorm statistics are summed over the ranks, and the positional
+embedding takes the block's global frame indices.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch.nn as nn
 from videovanish_tpu_torch.models.diffueraser.blocks import (
     Attention, FeedForward, GroupNorm, LayerNorm,
 )
+from videovanish_tpu_torch.ops.groupnorm import group_norm_over_ranks
 
 
 @functools.lru_cache(maxsize=16)
@@ -63,14 +67,20 @@ class TemporalTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, t_frames: int):
+    def forward(self, x, t_frames: int, shard=None):
+        """t_frames: the clip length; with `shard`, x holds this rank's
+        block of t_frames // shard.size frames of each clip."""
         BT, S, C = x.shape
+        t_local, first, attn_fn = t_frames, 0, None
+        if shard is not None:
+            t_local = t_frames // shard.size
+            first, attn_fn = shard.index * t_local, shard.attn
         pe = sinusoidal_positional_embedding(t_frames, C, x.device)
-        pos = pe.repeat(BT // t_frames, 1)[:, None, :]  # (B*T, 1, C)
+        pos = pe[first:first + t_local].repeat(BT // t_local, 1)[:, None, :]
         h = (self.norm1(x) + pos).to(x.dtype)
-        x = x + self.attn1(h, t_frames=t_frames)
+        x = x + self.attn1(h, t_frames=t_local, attn_fn=attn_fn)
         h = (self.norm2(x) + pos).to(x.dtype)
-        x = x + self.attn2(h, t_frames=t_frames)
+        x = x + self.attn2(h, t_frames=t_local, attn_fn=attn_fn)
         return x + self.ff(self.norm3(x).to(x.dtype))
 
 
@@ -86,14 +96,23 @@ class MotionModule(nn.Module):
             [TemporalTransformerBlock(dim, heads)])
         self.proj_out = nn.Linear(dim, dim)
 
-    def forward(self, x, t_frames: int):
+    def forward(self, x, t_frames: int, shard=None):
+        """x (B*T, C, H, W); with `shard` (a SequenceShard), T is this
+        rank's block of t_frames // shard.size frames of each clip."""
         BT, C, H, W = x.shape
-        B = BT // t_frames
+        t_local = t_frames if shard is None else t_frames // shard.size
+        B = BT // t_local
         # GroupNorm on (B, C, T, H, W): statistics pool over the clip
-        h = self.norm(x.reshape(B, t_frames, C, H, W).transpose(1, 2))
+        h = x.reshape(B, t_local, C, H, W).transpose(1, 2)
+        if shard is None:
+            h = self.norm(h)
+        else:
+            n = self.norm
+            h = group_norm_over_ranks(h, n.weight, n.bias, n.num_groups,
+                                      n.eps, shard.group)
         h = h.transpose(1, 2).reshape(BT, C, H, W) \
             .permute(0, 2, 3, 1).reshape(BT, H * W, C)
         h = self.proj_in(h)
-        h = self.transformer_blocks[0](h, t_frames)
+        h = self.transformer_blocks[0](h, t_frames, shard)
         h = self.proj_out(h)
         return h.reshape(BT, H, W, C).permute(0, 3, 1, 2) + x

@@ -87,7 +87,10 @@ class UNetCondition(nn.Module):
     """SD1.5 UNet. sample: (B*T, C_in, h, w); returns the epsilon
     prediction. brushnet_down (12 tensors at SD1.5 shape), brushnet_mid and
     brushnet_up (12) are BrushNetModel's additive features. `cache` (an
-    AttentionCache) records or replays the spatial attention outputs."""
+    AttentionCache) records or replays the spatial attention outputs.
+    t_frames is the clip length; with `shard` (a SequenceShard) the sample
+    holds this rank's block of each clip's frames and the motion modules
+    run their temporal attention as ring attention across the ranks."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4,
                  block_out_channels: Sequence[int] = (320, 640, 1280, 1280),
@@ -106,7 +109,7 @@ class UNetCondition(nn.Module):
     def forward(self, sample, timesteps, encoder_hidden_states,
                 t_frames: int = 1, brushnet_down: Optional[list] = None,
                 brushnet_mid: Optional[torch.Tensor] = None,
-                brushnet_up: Optional[list] = None, cache=None):
+                brushnet_up: Optional[list] = None, cache=None, shard=None):
         ctx = encoder_hidden_states
         temporal = t_frames > 1
         if timesteps.dim() == 0:
@@ -124,7 +127,7 @@ class UNetCondition(nn.Module):
                 if hasattr(blk, "attentions"):
                     h = blk.attentions[j](h, ctx, cache)
                 if temporal:
-                    h = blk.motion_modules[j](h, t_frames)
+                    h = blk.motion_modules[j](h, t_frames, shard)
                 h = _add(h, bd.pop(0) if bd else None)
                 down_res.append(h)
             if hasattr(blk, "downsamplers"):
@@ -135,7 +138,7 @@ class UNetCondition(nn.Module):
         h = mid.resnets[0](h, temb)
         h = mid.attentions[0](h, ctx, cache)
         if temporal:
-            h = mid.motion_modules[0](h, t_frames)
+            h = mid.motion_modules[0](h, t_frames, shard)
         h = _add(mid.resnets[1](h, temb), brushnet_mid)
 
         for blk in self.up_blocks:
@@ -146,7 +149,7 @@ class UNetCondition(nn.Module):
                 if hasattr(blk, "attentions"):
                     h = blk.attentions[j](h, ctx, cache)
                 if temporal:
-                    h = blk.motion_modules[j](h, t_frames)
+                    h = blk.motion_modules[j](h, t_frames, shard)
                 h = _add(h, bu.pop(0) if bu else None)
             if hasattr(blk, "upsamplers"):
                 # target the next skip's exact (odd-safe) resolution

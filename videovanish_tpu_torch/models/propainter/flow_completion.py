@@ -6,6 +6,15 @@ left out): a P3D encoder over (flow, mask) from 1/2 to 1/8 resolution, a
 dilated mid stack, second-order deformable propagation backward then
 forward over the frames (a Python loop over frames), and a decoder of
 bilinear (align_corners) 2x upsamples and convs back to flow.
+
+With a mesh the frames shard over its "data" axis (the JAX package's `_wsc`
+constraints): the encoder, the mid stack and the decoder run on the rank's
+block of frames and the recurrence runs whole on every rank. The encoder's
+four (3, 1, 1) dilation-2 temporal convolutions read 2 frames on each side,
+8 in all, which GSPMD supplies by halo exchanges; here each rank runs the
+encoder on its block widened by those 8 frames of the input, which every
+rank holds, and keeps the block: no traffic before the all-gather that
+feeds the recurrence.
 """
 from __future__ import annotations
 
@@ -13,6 +22,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from videovanish_tpu_torch.core.mesh import (
+    data_coords, frame_block, gather_blocks,
+)
 from videovanish_tpu_torch.models.propainter.deform import (
     SecondOrderDeformableAlignment,
 )
@@ -132,27 +144,44 @@ class RecurrentFlowCompleteNet(nn.Module):
             nn.Conv2d(b1, b1, 3, 1, 1), nn.LeakyReLU(0.2),
             Deconv(b1, 2, 3, 1))
 
-    def forward(self, masked_flows, masks):
+    # frames each side that the encoder's temporal convolutions read: four
+    # (3, 1, 1) convolutions at dilation 2
+    HALO = 8
+
+    def forward(self, masked_flows, masks, mesh=None):
         """masked_flows (T, 2, H, W), masks (T, 1, H, W) -> completed flow
-        (T, 2, H, W) f32."""
+        (T, 2, H, W) f32. With a mesh every rank holds all T frames and
+        returns them all (see the module docstring)."""
         dt = self.downsample[0].weight.dtype
         x = torch.cat([masked_flows, masks], 1).to(dt)
+        T = x.shape[0]
+        a, b = 0, T
+        sharded = data_coords(mesh)[1] > 1
+        if sharded:  # this rank's block, widened by the encoder's halo
+            a, b = frame_block(T, mesh)
+            lo, hi = max(0, a - self.HALO), min(T, b + self.HALO)
+            x = x[lo:hi]
         x = x.transpose(0, 1)[None]                      # (1, 3, T, H, W)
         e1 = self.encoder1(self.downsample(x))
-        mid = self.mid_dilation(self.encoder2(e1))
-        feat = self.feat_prop_module(mid[0].transpose(0, 1))  # (T, C, h, w)
-        d2 = self.decoder2(feat) + e1[0].transpose(0, 1)
-        flow = self.upsample(self.decoder1(d2))
-        return flow.float()
+        mid = self.mid_dilation(self.encoder2(e1))[0].transpose(0, 1)
+        e1 = e1[0].transpose(0, 1)                       # (T, C, h, w)
+        if sharded:
+            e1, mid = e1[a - lo:b - lo], mid[a - lo:b - lo]
+            mid = gather_blocks(mesh, mid, T)
+        feat = self.feat_prop_module(mid)                # (T, C, h, w)
+        d2 = self.decoder2(feat[a:b]) + e1
+        flow = self.upsample(self.decoder1(d2)).float()
+        return gather_blocks(mesh, flow, T) if sharded else flow
 
-    def forward_bidirect_flow(self, flows_forward, flows_backward, masks):
+    def forward_bidirect_flow(self, flows_forward, flows_backward, masks,
+                              mesh=None):
         """Mask both directions' flows in the holes, complete them, and keep
         the completed values inside the holes only. flows_* (T-1, 2, H, W)
         (forward t -> t+1, backward t+1 -> t); masks (T, 1, H, W)."""
         m_f, m_b = masks[:-1], masks[1:]
         masked_f = flows_forward * (1.0 - m_f)
         masked_b = flows_backward * (1.0 - m_b)
-        pred_f = self(masked_f, m_f)
-        pred_b = self(masked_b, m_b)
+        pred_f = self(masked_f, m_f, mesh)
+        pred_b = self(masked_b, m_b, mesh)
         return (pred_f * m_f + masked_f * (1.0 - m_f),
                 pred_b * m_b + masked_b * (1.0 - m_b))

@@ -15,6 +15,15 @@ progress) -> prior frames for DiffuEraser. For each sub-video chunk:
      windows are averaged per frame and composited over the input outside
      the mask.
 
+With a mesh (`core/mesh.py`, every rank given the same request) the work
+shards over its "data" axis and every rank returns the whole prior: RAFT
+over the frame pairs (each rank takes its pairs from the frames all ranks
+hold), the flow completion's convolutions over frames (its recurrence and
+the image propagation, both sequential over frames, run whole on every
+rank), and the generator's windows, grouped by their reference count and
+each group padded to a multiple of the axis by repeating its last window;
+each result is all-gathered.
+
 Chunks of `subvideo_length` frames overlap by min(4, sub // 2); each is
 padded back to the full length and the chunks are averaged. Everything
 runs on the model's device at the internal resolution (long side capped at
@@ -36,6 +45,7 @@ from videovanish_tpu_torch.config import ProPainterConfig
 from videovanish_tpu_torch.convert import (
     jax_params_to_state_dict, published_state_dict,
 )
+from videovanish_tpu_torch.core.mesh import data_coords, run_sharded
 from videovanish_tpu_torch.models.diffueraser.model import stack_frames
 from videovanish_tpu_torch.models.propainter.deform import (
     SecondOrderDeformableAlignment,
@@ -112,17 +122,19 @@ class Propainter:
     CUDA and f32 on the CPU. `stage_hook`, if set, is called as each stage of a chunk is
     enqueued, with its name and outputs: ("raft", flows_f, flows_b),
     ("flow_completion", completed_f, completed_b), ("propagation",
-    propagated frames, updated masks), ("generator", composited chunk)."""
+    propagated frames, updated masks), ("generator", composited chunk).
+    mesh: a ("data", "model") DeviceMesh to shard the work over, or None."""
 
     def __init__(self, repo_id=None, device="cuda",
                  config: Optional[ProPainterConfig] = None, params=None,
-                 seed: int = 0, compute_dtype=None):
+                 seed: int = 0, compute_dtype=None, mesh=None):
         # repo_id is accepted for the reference constructor's signature
         self.cfg = cfg = config or ProPainterConfig()
         self.device = torch.device(device or "cuda")
         self.dtype = compute_dtype or (
             torch.bfloat16 if self.device.type == "cuda" else torch.float32)
         self.stage_hook: Optional[Callable[..., None]] = None
+        self.mesh = mesh
         with torch.device(self.device):
             self.raft = RAFT(iters=cfg.raft_iters)
             self.flow_comp = RecurrentFlowCompleteNet(cfg.flowcomp_base)
@@ -162,11 +174,13 @@ class Propainter:
         frames01 = fr.permute(0, 3, 1, 2).float() / 255.0
         masks1 = mk.float()[:, None]
         imgs = (frames01 * 2.0 - 1.0).to(dt)
-        fl_f = self.raft(imgs[:-1], imgs[1:])
-        fl_b = self.raft(imgs[1:], imgs[:-1])
+        fl_f = run_sharded(self.mesh, self.raft, imgs[:-1], imgs[1:],
+                           even=False)
+        fl_b = run_sharded(self.mesh, self.raft, imgs[1:], imgs[:-1],
+                           even=False)
         self._stage("raft", fl_f, fl_b)
-        comp_f, comp_b = self.flow_comp.forward_bidirect_flow(fl_f, fl_b,
-                                                              masks1)
+        comp_f, comp_b = self.flow_comp.forward_bidirect_flow(
+            fl_f, fl_b, masks1, self.mesh)
         self._stage("flow_completion", comp_f, comp_b)
         masked = imgs.float() * (1.0 - masks1)
         prop, upd_masks = image_propagation(masked, masks1, comp_f, comp_b,
@@ -186,6 +200,27 @@ class Propainter:
             masks1[ids], upd_masks[ids], NL)
         return (pred + 1.0) / 2.0
 
+    def _windows(self, stage1, NL: int, plan):
+        """The generator's prediction of every window of `plan`, in order.
+        With a mesh each rank runs its share of each group of windows with
+        one reference count (a group padded to a multiple of "data" by
+        repeating its last window) and the predictions are all-gathered."""
+        if data_coords(self.mesh)[1] == 1:
+            return [self._window(stage1, s, NL, refs) for s, refs in plan]
+        groups: dict[int, list] = {}
+        for i, (_, refs) in enumerate(plan):
+            groups.setdefault(len(refs), []).append(i)
+        preds = [None] * len(plan)
+        for ids in groups.values():
+            def run(mine):
+                return torch.stack([self._window(stage1, plan[i][0], NL,
+                                                 plan[i][1])
+                                    for i in mine.tolist()])
+            out = run_sharded(self.mesh, run, torch.tensor(ids), even=False)
+            for j, i in enumerate(ids):
+                preds[i] = out[j]
+        return preds
+
     def _run_chunk(self, fr, mk, neighbor_length: int, ref_stride: int):
         """One chunk -> the composited prior (T, h, w, 3) f32 in [0, 1]:
         the windows averaged per frame inside the mask, the input outside."""
@@ -193,10 +228,11 @@ class Propainter:
         frames01, masks1 = stage1[:2]
         T = fr.shape[0]
         NL, plan = window_plan(T, neighbor_length, ref_stride)
+        preds = self._windows(stage1, NL, plan)
         acc = torch.zeros_like(frames01)
         wsum = torch.zeros(T, 1, 1, 1, device=fr.device)
-        for s, refs in plan:
-            acc[s:s + NL] += self._window(stage1, s, NL, refs)
+        for (s, _), pred in zip(plan, preds):
+            acc[s:s + NL] += pred
             wsum[s:s + NL] += 1.0
         out01 = frames01 * (1.0 - masks1) + acc / wsum * masks1
         self._stage("generator", out01)

@@ -174,6 +174,11 @@ def _run(fn, ops, dims, scale, *ts, extra=()) -> None:
     dev = ts[0].get_device()
     if any(t.get_device() != dev for t in ts):
         raise ValueError("q, k, v must lie on one device")
+    if dev != torch.cuda.current_device():
+        # the kernels launch into the current device's context (a rank of
+        # a mesh sets its own card with torch.cuda.set_device)
+        raise ValueError(f"the tensors lie on cuda:{dev}, the current "
+                         f"device is cuda:{torch.cuda.current_device()}")
     B, H, Sq, Sk, D = dims
     if D % 8 or Sq < 1 or Sk < 1:
         raise ValueError(f"head dim must be a multiple of 8, got D={D}")

@@ -21,6 +21,11 @@ videovanish_tpu/pipeline/chunking.py).
   stream of its own it moved the wall time of an 88-frame 720p job on the
   H100 by less than the run-to-run spread (PERF.md,
   `scripts/chunk_prior_ab.py`).
+- Under torchrun (one process per card) every rank reads the videos and
+  computes every chunk through the mesh of `run_infill_on_frames`; rank 0
+  alone writes the chunk files, the manifest and the output video. Which
+  chunks a resume skips, their latent carry and a cancellation are rank
+  0's, broadcast to every rank, so the ranks stay in step.
 """
 from __future__ import annotations
 
@@ -34,8 +39,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from videovanish_tpu_torch.core.mesh import (
+    agree, barrier, initialize_distributed, is_writer,
+)
 from videovanish_tpu_torch.core.prog import (
-    check_cancel, null_prog, scale_prog,
+    CancelledError, null_prog, scale_prog,
 )
 from videovanish_tpu_torch.pipeline import infill
 from videovanish_tpu_torch.utils.observability import record_stage
@@ -85,6 +93,8 @@ def vanish_video_chunked(color_video: str, mask_video: str, out_video: str,
     work directory's manifest. `device` as in run_infill_on_frames."""
     prog = prog or null_prog
     device = torch.device(device)
+    initialize_distributed(device_type=device.type)
+    writer = is_writer()
     cfg = infill._get_config().chunking
     chunk = chunk_frames or cfg.chunk_frames
     overlap = overlap_frames if overlap_frames is not None \
@@ -114,21 +124,24 @@ def vanish_video_chunked(color_video: str, mask_video: str, out_video: str,
         f"{max_img_size}|{keep_unmasked_original}|{feather_px}".encode()
     ).hexdigest()[:16]
     wd = work_dir or (os.path.splitext(out_video)[0] + f".vvwork_{job_id}")
-    os.makedirs(wd, exist_ok=True)
     manifest_path = os.path.join(wd, "manifest.json")
 
     manifest = {"job_id": job_id, "chunks": len(plan), "completed": []}
-    if resume and os.path.exists(manifest_path):
-        with open(manifest_path) as f:
-            old = json.load(f)
-        if old.get("job_id") == job_id:
-            manifest = old
+    if writer:
+        os.makedirs(wd, exist_ok=True)
+        if resume and os.path.exists(manifest_path):
+            with open(manifest_path) as f:
+                old = json.load(f)
+            if old.get("job_id") == job_id:
+                manifest = old
 
     def chunk_path(ci):
         return os.path.join(wd, f"chunk_{ci:05d}.npz")
 
-    def saved(ci):
-        return ci in manifest["completed"] and os.path.exists(chunk_path(ci))
+    # the chunks a resume skips: the writer's, on every rank
+    saved = set(agree(
+        [ci for ci in manifest["completed"]
+         if os.path.exists(chunk_path(ci))] if writer else None))
 
     color_rd = PrefetchingFrameSource(color_video, start_frame, max_frames,
                                       prefetch_frames=chunk + overlap)
@@ -172,18 +185,19 @@ def vanish_video_chunked(color_video: str, mask_video: str, out_video: str,
     latent_carry = None  # (z_acc, w_acc) handed chunk to chunk
     try:
         for ci, (s, e) in enumerate(plan):
-            check_cancel(is_canceled)
+            if agree(is_canceled is not None and bool(is_canceled())):
+                raise CancelledError("job canceled")
             ov_next = pair_ov[ci + 1] if ci < len(plan) - 1 else 0
             frames, masks = materialize(ci)
 
-            if saved(ci):
+            if ci in saved:
                 prog(5 + 85 * (ci + 1) / len(plan),
                      f"chunk {ci + 1}/{len(plan)} (resumed)")
-                if ov_next:  # the carry for the next chunk
+                latent_carry = None
+                if ov_next and writer:  # the carry for the next chunk
                     with np.load(chunk_path(ci)) as z:
                         latent_carry = (z["carry_z"], z["carry_w"])
-                else:
-                    latent_carry = None
+                latent_carry = agree(latent_carry)
                 continue
 
             sub_prog = scale_prog(prog, 5 + 85 * ci / len(plan),
@@ -203,8 +217,9 @@ def vanish_video_chunked(color_video: str, mask_video: str, out_video: str,
                 out, latent_carry = out
             else:
                 latent_carry = None
-            save_futs.append(io_pool.submit(save_chunk, ci, out,
-                                            latent_carry))
+            if writer:
+                save_futs.append(io_pool.submit(save_chunk, ci, out,
+                                                latent_carry))
         for f in save_futs:  # raise the io thread's failures
             f.result()
     finally:
@@ -215,6 +230,10 @@ def vanish_video_chunked(color_video: str, mask_video: str, out_video: str,
     # every chunk's frames are final (the seams blended in latent space):
     # stream them into the output in order
     prog(92, "assembling output")
+    if not writer:  # rank 0 writes the output; wait for it
+        barrier()
+        prog(100, "done")
+        return out_video
 
     def saved_frames():
         for ci in range(len(plan)):
@@ -228,5 +247,6 @@ def vanish_video_chunked(color_video: str, mask_video: str, out_video: str,
     for fn in os.listdir(wd):  # done: clear the work directory
         os.remove(os.path.join(wd, fn))
     os.rmdir(wd)
+    barrier()
     prog(100, "done")
     return out_video

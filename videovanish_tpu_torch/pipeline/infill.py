@@ -12,13 +12,26 @@ weights of the config's checkpoint files where they exist. Stages are
 timed as in the JAX package (`utils/observability.py`: mask_dilate,
 propainter_prior, diffueraser_denoise, rescale_composite), and
 VV_PROFILE_DIR traces a call.
+
+Several cards: under torchrun (one process per card) the call goes SPMD on
+its own, as the JAX package's does on a multi-device host: it joins the
+process group, builds a ("data", "model") mesh over every rank, and the
+models shard their frames over "data" (`_get_mesh`). Every rank passes the
+same frames and gets the whole result back. VV_MESH=0 keeps each process
+on its own card; VV_MODEL_PARALLEL=k sets the model axis.
 """
 from __future__ import annotations
+
+import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from videovanish_tpu_torch.config import default_config
+from videovanish_tpu_torch.core.mesh import (
+    data_coords, initialize_distributed, make_mesh,
+)
 from videovanish_tpu_torch.models.diffueraser.model import (
     DiffuEraser, stack_frames,
 )
@@ -39,6 +52,7 @@ video_inpainting_sd = None
 propainter = None
 last_ckpt = None
 _config = None
+_mesh = "unset"  # resolved on first use: a DeviceMesh or None
 
 
 def _get_config():
@@ -50,26 +64,76 @@ def _get_config():
 
 def set_config(cfg) -> None:
     """Install a non-default config (tests use tiny_config); drops the
-    model singletons."""
-    global _config, video_inpainting_sd, propainter, last_ckpt
+    model singletons and the mesh decision."""
+    global _config, video_inpainting_sd, propainter, last_ckpt, _mesh
     _config = cfg
     video_inpainting_sd = None
     propainter = None
     last_ckpt = None
+    _mesh = "unset"
+
+
+def set_mesh(mesh) -> None:
+    """Install a mesh (a DeviceMesh, or None for one device) in place of
+    `_get_mesh`'s decision; drops the model singletons."""
+    global video_inpainting_sd, propainter, last_ckpt, _mesh
+    video_inpainting_sd = None
+    propainter = None
+    last_ckpt = None
+    _mesh = mesh
+
+
+def _get_mesh(device="cuda"):
+    """The mesh policy of the JAX package's `_get_mesh`: a ("data",
+    "model") mesh over every rank when the process runs in a
+    torch.distributed world of more than one rank (joined here from
+    torchrun's or the VV_ variables, `initialize_distributed`), None in a
+    lone process. VV_MESH=0 forces None; VV_MODEL_PARALLEL=k sets the
+    model axis (default: the config's). A mesh that cannot be built
+    raises."""
+    global _mesh
+    if isinstance(_mesh, str):
+        mode = os.environ.get("VV_MESH", "auto")
+        if mode not in ("auto", "0"):
+            raise ValueError(f"VV_MESH={mode!r}: expected 'auto' or '0'")
+        device = torch.device(device)
+        if mode == "0" or not initialize_distributed(
+                device_type=device.type) \
+                or torch.distributed.get_world_size() == 1:
+            _mesh = None
+        else:
+            mcfg = _get_config().mesh
+            mp = int(os.environ.get("VV_MODEL_PARALLEL", mcfg.model))
+            _mesh = make_mesh(device.type, model_parallel=mp,
+                              data=mcfg.data)
+    return _mesh
+
+
+def _clip_for_mesh(cfg, mesh):
+    """The DiffuEraser config with its window length rounded up to a
+    multiple of the mesh's data axis, so that every window shards (a
+    window that does not divide runs whole on every rank)."""
+    n = data_coords(mesh)[1]
+    if n > 1 and cfg.clip_length % n:
+        cfg = dataclasses.replace(
+            cfg, clip_length=-(-cfg.clip_length // n) * n)
+    return cfg
 
 
 def get_model(ckpt: str = "2-Step", device="cuda"):
     """The DiffuEraser singleton for `ckpt` on `device`, built on first use
     with the weights of the config's checkpoint files (`load_checkpoint`);
-    seeded random where a file does not exist."""
+    seeded random where a file does not exist. Under a mesh (`_get_mesh`)
+    its frames shard over "data"."""
     global video_inpainting_sd, last_ckpt
+    mesh = _get_mesh(device)
     if (video_inpainting_sd is None or last_ckpt != ckpt
             or video_inpainting_sd.device != torch.device(device)):
         video_inpainting_sd = None  # the old model's memory goes first
         cfg = _get_config().diffueraser
         video_inpainting_sd = DiffuEraser(
-            config=cfg, ckpt=ckpt, device=device,
-            params=load_diffueraser_checkpoint(cfg))
+            config=_clip_for_mesh(cfg, mesh), ckpt=ckpt, device=device,
+            params=load_diffueraser_checkpoint(cfg), mesh=mesh)
         last_ckpt = ckpt
     return video_inpainting_sd
 
@@ -77,13 +141,16 @@ def get_model(ckpt: str = "2-Step", device="cuda"):
 def get_propainter(device="cuda"):
     """The Propainter singleton on `device`, built on first use with the
     weights of the config's three checkpoint files (`load_checkpoints`);
-    seeded random where a file does not exist."""
+    seeded random where a file does not exist. Under a mesh its work
+    shards over "data"."""
     global propainter
+    mesh = _get_mesh(device)
     if propainter is None or propainter.device != torch.device(device):
         propainter = None
         cfg = _get_config().propainter
         propainter = Propainter(config=cfg, device=device,
-                                params=load_propainter_checkpoints(cfg))
+                                params=load_propainter_checkpoints(cfg),
+                                mesh=mesh)
     return propainter
 
 
