@@ -77,7 +77,19 @@ of one machine (one is enough).
    attention over the whole T in f32 (max |err| within 2e-5), both timed
    (the plain version over all of T on one card). Prints the world size, the mesh, the windows run
    sharded and whole, the warm wall times and peaks of both runs, and the
-   NCCL version;
+   NCCL version. Then the trainer on the mesh (`make_train_step(mesh=...)`,
+   data and tensor parallelism), the training phase's step (its models,
+   TRAIN_CLIP, remat, a warm-up and TRAIN_STEPS): first with mesh=None on
+   every card at once, the baseline; at one card then on a 1x1 mesh,
+   which must equal the baseline bitwise in every loss and every
+   parameter after the last step; on N cards at (data N, model 1) on N
+   clips (its first loss and every parameter's first gradient held to one
+   card's on the same clips, MESH_LOSS_TOL and MESH_GRAD_TOL), at (data 1,
+   model N) on one clip (every loss held to the baseline's,
+   MESH_LOSS_TOL), and at (data 1, model N) on one clip of 64x64 latents
+   (which do not fit one card: it reports whether they fit on N; its
+   first loss held to a one-card forward). Prints each case's warm step
+   time, its peak per rank and its losses;
 6. SAM2 masking: a fourth request, `run_sam2_on_frames` on 24 frames at
    1280x720 with the default Sam2Config (Hiera-L at 1024x1024, 7 memory
    slots, 16 object pointers) and seeded random weights, two objects (a
@@ -153,6 +165,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import functools
 import gc
 import json
@@ -871,49 +884,94 @@ def state_bytes(state, params) -> int:
                    if p.grad is not None)
 
 
-def reference_grads(unet, brushnet, batch, t, noise):
-    """The training loss's gradient at the modules' present parameters,
-    taken apart from `train_step`: f32 with no autocast, every attention
-    call on its plain path (the port's routes patched to "plain", so no
-    kernel launches), the trainer's two checkpoint cuts. Returns
-    ({(model, name): gradient on the host}, loss, peak GiB); the modules'
-    .grad are cleared."""
+def loss_inputs(batch, t, noise):
+    """The training loss's inputs, as train_step builds them: (t over the
+    frames, x_t, BrushNet's sample, the text embedding over the frames, the
+    drawn noise), (B*T, ...) and NCHW, f32."""
     import torch
-    from torch.utils.checkpoint import checkpoint
     from videovanish_tpu_torch.models.diffueraser.scheduler import (
         NoiseSchedule,
     )
-    from videovanish_tpu_torch.ops import attention as A
-
     T = batch["latents"].shape[1]
 
     def nchw(x):  # (B, T, h, w, C) -> (B*T, C, h, w)
         return x.flatten(0, 1).permute(0, 3, 1, 2).float().contiguous()
 
     t_full = t.long().repeat_interleave(T)
-    x_t = NoiseSchedule().add_noise(nchw(batch["latents"]), nchw(noise),
-                                    t_full)
+    eps_true = nchw(noise)
+    x_t = NoiseSchedule().add_noise(nchw(batch["latents"]), eps_true, t_full)
     sample = torch.cat([x_t, nchw(batch["masked_lat"]),
                         nchw(batch["mask_lat"])], dim=1)
     txt = batch["text_emb"].float().repeat_interleave(T, dim=0)
+    return t_full, x_t, sample, txt, eps_true
 
-    def unet_fwd(x, bd, bm, bu):
-        return unet(x, t_full, txt, T, brushnet_down=bd, brushnet_mid=bm,
-                    brushnet_up=bu)
 
+def one_card_loss(unet, brushnet, batch, t, noise) -> float:
+    """The training loss at the modules' present parameters on one card,
+    forward only (no grad), under the trainer's bf16 autocast: clip by
+    clip, the mean of the clips' losses (all as large), as a step on one
+    card would report it for the whole batch."""
+    import torch
+    T = batch["latents"].shape[1]
+    losses = []
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        for b in range(batch["latents"].shape[0]):
+            t_full, x_t, sample, txt, eps_true = loss_inputs(
+                {k: v[b:b + 1] for k, v in batch.items()}, t[b:b + 1],
+                noise[b:b + 1])
+            bd, bm, bu = brushnet(sample, t_full, txt)
+            eps = unet(x_t, t_full, txt, T, brushnet_down=bd,
+                       brushnet_mid=bm, brushnet_up=bu)
+            losses.append(torch.mean(torch.square(eps.float() - eps_true)))
+            del bd, bm, bu, eps
+    return float(torch.stack(losses).mean())
+
+
+def reference_grads(unet, brushnet, batch, t, noise, plain: bool = True):
+    """The training loss's gradient at the modules' present parameters,
+    taken apart from `train_step` with the trainer's two checkpoint cuts,
+    clip by clip on this card (each clip's loss over B, the gradients
+    summed): `plain`, f32 with no autocast and every attention call on its
+    plain path (the port's routes patched to "plain", so no kernel
+    launches); else the trainer's bf16 autocast and kernels. Returns
+    ({(model, name): gradient on the host}, loss, peak GiB); the modules'
+    .grad are cleared."""
+    import contextlib
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from videovanish_tpu_torch.ops import attention as A
+
+    B, T = batch["latents"].shape[:2]
     launched = sum(A.LAUNCHES.values())
     routes = A.attention_route, A.tokenmajor_route
-    A.attention_route = A.tokenmajor_route = lambda *a, **kw: "plain"
+    if plain:
+        A.attention_route = A.tokenmajor_route = lambda *a, **kw: "plain"
+    amp = contextlib.nullcontext() if plain \
+        else torch.autocast("cuda", dtype=torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
+    losses = []
     try:
-        bd, bm, bu = checkpoint(brushnet, sample, t_full, txt,
-                                use_reentrant=False)
-        eps = checkpoint(unet_fwd, x_t, bd, bm, bu, use_reentrant=False)
-        loss = torch.mean(torch.square(eps.float() - nchw(noise)))
-        loss.backward()
+        for b in range(B):
+            t_full, x_t, sample, txt, eps_true = loss_inputs(
+                {k: v[b:b + 1] for k, v in batch.items()}, t[b:b + 1],
+                noise[b:b + 1])
+
+            def unet_fwd(x, bd, bm, bu):
+                return unet(x, t_full, txt, T, brushnet_down=bd,
+                            brushnet_mid=bm, brushnet_up=bu)
+
+            with amp:
+                bd, bm, bu = checkpoint(brushnet, sample, t_full, txt,
+                                        use_reentrant=False)
+                eps = checkpoint(unet_fwd, x_t, bd, bm, bu,
+                                 use_reentrant=False)
+            loss = torch.mean(torch.square(eps.float() - eps_true))
+            (loss / B).backward()
+            losses.append(loss.detach())
+            del bd, bm, bu, eps, loss
     finally:
         A.attention_route, A.tokenmajor_route = routes
-    if sum(A.LAUNCHES.values()) != launched:
+    if plain and sum(A.LAUNCHES.values()) != launched:
         raise RuntimeError("the plain-path gradient launched a kernel")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     grads = {}
@@ -921,14 +979,17 @@ def reference_grads(unet, brushnet, batch, t, noise):
         for k, p in m.named_parameters():
             grads[name, k] = p.grad.cpu()
             p.grad = None
-    return grads, loss.item(), peak
+    return grads, float(torch.stack(losses).mean()), peak
 
 
-def grad_agreement(params, ref) -> dict:
+def grad_agreement(params, ref, limit: float = TRAIN_GRAD_TOL,
+                   what: str = "[train] gradients against f32 on the "
+                               "plain path") -> dict:
     """Each parameter's gradient (`params[model][name].grad`, the trainer's
     step on the card) against `ref` ({(model, name): tensor}): the 2-norm
     of the difference over max(|ref|_2, TRAIN_GRAD_FLOOR * the largest
-    |ref|_2). Raises where that exceeds TRAIN_GRAD_TOL."""
+    |ref|_2). Prints a line that starts with `what`; raises where that
+    exceeds `limit`."""
     import torch
     diff, norm = {}, {}
     for (name, k), g in ref.items():
@@ -942,7 +1003,7 @@ def grad_agreement(params, ref) -> dict:
     rel = {key: diff[key] / max(norm[key], floor) for key in ref}
     worst = sorted(rel, key=rel.get, reverse=True)
     vals = sorted(rel.values())
-    out = {"limit": TRAIN_GRAD_TOL, "floor": TRAIN_GRAD_FLOOR,
+    out = {"limit": limit, "floor": TRAIN_GRAD_FLOOR,
            "parameters": len(rel), "median": vals[len(vals) // 2],
            "p99": vals[int(0.99 * (len(vals) - 1))], "max": vals[-1],
            "below_floor": sum(n < floor for n in norm.values()),
@@ -951,25 +1012,26 @@ def grad_agreement(params, ref) -> dict:
                                     if norm[key] > 0),
            "worst": [[".".join(key), rel[key], norm[key]]
                      for key in worst[:8]]}
-    print(f"[train] gradients against f32 on the plain path: |g - g_ref| / "
+    print(f"{what}: |g - g_ref| / "
           f"|g_ref| median {out['median']:.4g}, p99 {out['p99']:.4g}, max "
-          f"{out['max']:.4g} (limit {TRAIN_GRAD_TOL}; {out['below_floor']} "
+          f"{out['max']:.4g} (limit {limit}; {out['below_floor']} "
           f"of {len(rel)} parameters under the floor; without the floor "
           f"max {out['max_without_floor']:.4g}); worst "
           f"{json.dumps(out['worst'])}", flush=True)
-    bad = [key for key in worst if rel[key] > TRAIN_GRAD_TOL]
+    bad = [key for key in worst if rel[key] > limit]
     if bad:
-        raise RuntimeError(f"{len(bad)} parameters' gradients differ from "
-                           f"the f32 plain path's by more than "
-                           f"{TRAIN_GRAD_TOL}: {['.'.join(b) for b in bad[:8]]}")
+        raise RuntimeError(f"{what}: {len(bad)} parameters' gradients "
+                           f"differ by more than {limit}: "
+                           f"{['.'.join(b) for b in bad[:8]]}")
     return out
 
 
-def train_setup(seed: int = 0):
+def train_setup(seed: int = 0, clip=TRAIN_CLIP):
     """The training phase's models and batch on the card: the default
-    config's UNet (motion modules) and BrushNet, seeded with init_random_,
-    one clip of TRAIN_CLIP latents with its t and noise. Returns (unet,
-    brushnet, batch, t, noise)."""
+    config's UNet (motion modules) and BrushNet, seeded with init_random_
+    (the same weights whatever the clip), and a batch of `clip` (B, T, h,
+    w) latents with its t and noise. Returns (unet, brushnet, batch, t,
+    noise)."""
     import torch
     from videovanish_tpu_torch.config import default_config
     from videovanish_tpu_torch.models.diffueraser.blocks import init_random_
@@ -989,7 +1051,7 @@ def train_setup(seed: int = 0):
                                  cfg.cross_attention_dim)
     init_random_(unet, gen)
     init_random_(brushnet, gen)
-    B, T, h, w = TRAIN_CLIP
+    B, T, h, w = clip
     batch = {
         "latents": torch.randn(B, T, h, w, 4, generator=gen, device="cuda"),
         "masked_lat": torch.randn(B, T, h, w, 4, generator=gen,
@@ -1337,6 +1399,172 @@ RING_REPS = 20
 MESH_MEAN_TOL, MESH_MAX_TOL = 2.0, 64
 
 
+# the mesh phase's training part: the one-card step (mesh=None) on every
+# card at once, the baseline in the same run; at one card the same step on
+# a 1x1 mesh, bitwise equal to it; on N cards (data N, model 1) with N
+# clips of TRAIN_CLIP, (data 1, model N) with one, and (data 1, model N)
+# with one clip of 64x64 latents, which do not fit one card
+MESH_TRAIN_64 = (1, 22, 64, 64)
+# each loss of (data 1, model N) against the baseline's on the same draws,
+# and a first loss against one card's, relative: bf16 products summed in
+# another order (four H100s: at most 9.7e-05 over the five losses of
+# (1, 4), 8.8e-05 for the 64x64 first loss; PERF.md)
+MESH_LOSS_TOL = 5e-4
+# (data N, model 1)'s first gradient, averaged over "data", against one
+# card's on the same clips (each clip's gradient over N, summed), per
+# parameter as grad_agreement holds it: only the order of the sum differs
+MESH_GRAD_TOL = 1e-3
+
+
+def train_steps(step_fn, state, batch, t, noise, sync, first=None) -> tuple:
+    """A warm-up step and TRAIN_STEPS more on the same batch, t and noise,
+    each timed on the host clock between `sync`s; `first(state)` runs after
+    the warm-up step. Returns (state, losses, seconds, launch counts of the
+    steps after the warm-up)."""
+    from videovanish_tpu_torch.ops import attention as A
+    losses, secs = [], []
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:
+            if first is not None:
+                first(state)
+            A.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch, t=t, noise=noise)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+    return state, losses, secs, dict(A.LAUNCHES)
+
+
+def mesh_train_case(seed: int, clip, model, hold=None,
+                    keep: bool = False) -> dict:
+    """The training phase's step through make_train_step on a mesh over
+    every rank with a "model" axis of `model` (model None: mesh=None, each
+    rank on its own card), on a batch of `clip` latents (the whole batch on
+    every rank): a warm-up and TRAIN_STEPS steps. `hold` holds the first
+    step to one card on the same draws: "forward", its loss to
+    one_card_loss's; "gradient", its loss and every parameter's gradient to
+    reference_grads' on the kernels (MESH_GRAD_TOL). `keep` returns the
+    parameters after the last step on the host, under "params". The 64x64
+    clip may run out of memory, which it reports (every rank runs out at
+    the same allocation: their memory is the same)."""
+    import torch
+    import torch.distributed as dist
+    from videovanish_tpu_torch.core.mesh import make_mesh
+    from videovanish_tpu_torch.train import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = None if model is None else make_mesh("cuda", model_parallel=model)
+    resident = torch.cuda.memory_allocated()
+    unet, brushnet, batch, t, noise = train_setup(seed, clip)
+    ref_loss = grads = None
+    if hold == "forward":
+        ref_loss = one_card_loss(unet, brushnet, batch, t, noise)
+    elif hold == "gradient":
+        grads, ref_loss, _ = reference_grads(unet, brushnet, batch, t, noise,
+                                             plain=False)
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn = make_train_step(unet, brushnet, mesh,
+                                       learning_rate=TRAIN_LR, remat=True)
+    state = init_fn()
+    out = {"mesh": None if mesh is None
+           else dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "clip_B_T_h_w": list(clip), "fits": True}
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    def first(state):
+        nonlocal grads
+        if grads is not None:
+            out["grad_rel_err"] = grad_agreement(
+                state.params, grads, MESH_GRAD_TOL,
+                f"[mesh] {out['mesh']}: the first step's gradients against "
+                f"one card's on the same clips")
+            grads = None
+    try:
+        state, losses, secs, counts = train_steps(step_fn, state, batch, t,
+                                                  noise, sync, first)
+    except torch.cuda.OutOfMemoryError as e:
+        if tuple(clip) != MESH_TRAIN_64:
+            raise
+        out["fits"] = False
+        out["out_of_memory"] = str(e).splitlines()[0]
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, (torch.cuda.max_memory_allocated(),
+                                   resident))
+    out["peak_gib_per_rank"] = [p / 2 ** 30 for p, _ in peaks]
+    out["peak_above_resident_gib_per_rank"] = [(p - r) / 2 ** 30
+                                               for p, r in peaks]
+    if out["fits"]:
+        out.update(losses=losses, step_seconds=secs,
+                   warm_step_seconds=sum(secs[1:]) / TRAIN_STEPS,
+                   launches_per_step={k: n / TRAIN_STEPS
+                                      for k, n in sorted(counts.items())})
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"mesh training losses not finite: {losses}")
+        if keep:
+            out["params"] = {name: {k: p.detach().cpu()
+                                    for k, p in tree.items()}
+                             for name, tree in state.params.items()}
+    if ref_loss is not None:
+        out["one_card_first_loss"] = ref_loss
+        if out["fits"]:
+            rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+            out["first_loss_rel_diff"] = rel
+            if not rel <= MESH_LOSS_TOL:
+                raise RuntimeError(f"mesh {out['mesh']} clip {clip}: first "
+                                   f"loss {losses[0]} against one card's "
+                                   f"{ref_loss} (limit {MESH_LOSS_TOL})")
+    del state, step_fn, init_fn, unet, brushnet, batch, t, noise
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_rank(seed: int) -> dict:
+    """The mesh phase's training part on this rank: the one-card step
+    (mesh=None) on every card at once, the baseline; at world 1 the same
+    step on a 1x1 mesh, which must equal it bitwise in every loss and
+    every parameter after the last step; at world N the three cases of
+    MESH_TRAIN_64's comment, (data 1, model N) held to the baseline in
+    every loss (MESH_LOSS_TOL). Returns {case: mesh_train_case's
+    report}."""
+    import torch
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    one = mesh_train_case(seed, TRAIN_CLIP, None, keep=world == 1)
+    if world == 1:
+        mesh = mesh_train_case(seed, TRAIN_CLIP, 1, keep=True)
+        ref, got = one.pop("params"), mesh.pop("params")
+        differ = [f"{name}.{k}" for name in ref for k, p in ref[name].items()
+                  if not torch.equal(got[name][k], p)]
+        mesh["bitwise_losses"] = mesh["losses"] == one["losses"]
+        mesh["bitwise_params"] = not differ
+        if differ or not mesh["bitwise_losses"]:
+            raise RuntimeError(
+                f"the 1x1 mesh's training differs from the one-card run: "
+                f"losses {mesh['losses']} against {one['losses']}, "
+                f"{len(differ)} parameters differ, e.g. {differ[:5]}")
+        return {"one_card": one, "mesh_1x1": mesh}
+    out = {"one_card": one,
+           "data": mesh_train_case(seed, (world,) + TRAIN_CLIP[1:], 1,
+                                   hold="gradient"),
+           "model": mesh_train_case(seed, TRAIN_CLIP, world),
+           "model_64x64": mesh_train_case(seed, MESH_TRAIN_64, world,
+                                          hold="forward")}
+    split = out["model"]
+    split["loss_rel_diff"] = [abs(a - b) / abs(b) for a, b in
+                              zip(split["losses"], one["losses"])]
+    if not max(split["loss_rel_diff"]) <= MESH_LOSS_TOL:
+        raise RuntimeError(f"(data 1, model {world}): losses "
+                           f"{split['losses']} against one card's "
+                           f"{one['losses']} (limit {MESH_LOSS_TOL})")
+    return out
+
+
 def mesh_rank(seed: int = 0) -> dict:
     """One rank of the mesh phase, in an initialized NCCL world: the
     request on one device, twice, then through a mesh over every rank,
@@ -1436,6 +1664,8 @@ def mesh_rank(seed: int = 0) -> dict:
     nccl = torch.cuda.nccl.version()
     infill.get_model("2-Step", "cuda").latent_hook = None
     infill.set_config(cfg)  # later phases decide their own mesh (none)
+    latents.clear()
+    training = mesh_train_rank(seed)
     torch.cuda.empty_cache()
     return {"world_size": world, "mesh": dict(zip(mesh.mesh_dim_names,
                                                   mesh.shape)),
@@ -1448,6 +1678,7 @@ def mesh_rank(seed: int = 0) -> dict:
             else str(nccl),
             "ring": {"shape": list(RING_SHAPE), "max_abs_err": ring_err,
                      "ms": ring_ms, "plain_ms": plain_ms},
+            "training": training,
             "launches": counts}
 
 
@@ -1458,9 +1689,12 @@ def _mesh_rank_entry(rank, world, port, seed, out_path):
     torch.backends.cudnn.allow_tf32 = False
     os.environ["LOCAL_RANK"] = str(rank)
     torch.cuda.set_device(rank)
+    # a collective that one rank never joins (say, one rank alone out of
+    # memory) fails the phase in minutes instead of holding the cards
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank,
-                            device_id=torch.device("cuda", rank))
+                            device_id=torch.device("cuda", rank),
+                            timeout=datetime.timedelta(seconds=300))
     try:
         report = mesh_rank(seed)
     finally:
@@ -1520,6 +1754,32 @@ def run_mesh_phase(seed: int = 0):
           f"{report['ring']['ms']:.3f} ms against plain "
           f"{report['ring']['plain_ms']:.3f} ms; phase "
           f"{report['phase_s']:.1f} s", flush=True)
+    for case, r in report["training"].items():
+        line = (f"[mesh] training {case}: mesh "
+                f"{r['mesh'] or 'none (each rank on its own card)'}, clip "
+                f"{tuple(r['clip_B_T_h_w'])}, ")
+        if r["fits"]:
+            line += (f"warm step {r['warm_step_seconds']:.3f} s, losses "
+                     f"{r['losses']}, ")
+        else:
+            line += f"does not fit ({r['out_of_memory']}), "
+        line += (f"peak per rank {[round(p, 2) for p in r['peak_gib_per_rank']]}"
+                 f" GiB ({[round(p, 2) for p in r['peak_above_resident_gib_per_rank']]}"
+                 f" above what was resident)")
+        if "bitwise_params" in r:
+            line += (f"; bitwise equal to the one-card run in every loss and "
+                     f"parameter: {r['bitwise_losses'] and r['bitwise_params']}")
+        if "first_loss_rel_diff" in r:
+            line += (f"; first loss against one card's "
+                     f"{r['one_card_first_loss']:.6f}: relative "
+                     f"{r['first_loss_rel_diff']:.3g}")
+        if "loss_rel_diff" in r:
+            line += (f"; every loss against the one-card step's: relative "
+                     f"max {max(r['loss_rel_diff']):.3g}")
+        if "grad_rel_err" in r:
+            line += (f"; first gradients against one card's: max "
+                     f"{r['grad_rel_err']['max']:.3g}")
+        print(line, flush=True)
     return counts, report
 
 

@@ -7,9 +7,16 @@ Builds the kernels, then runs `chip_smoke.run_mesh_phase`: the 24-frame
 1280x720 infill request with the prior computed on one card, then through
 a ("data", "model") mesh over one rank a card (spawned, NCCL; in this
 process at one card), held against each other, and ring attention over the
-mesh's data group against the plain attention. Prints the card names and
-power limits, the phase's line, its report as JSON and rank 0's kernel
-launches of the mesh run. Needs a CUDA device.
+mesh's data group against the plain attention; then the DiffuEraser
+trainer on the mesh at full width: the one-card step on every card at
+once (the baseline), then at one card a 1x1 mesh, bitwise equal to it;
+on N cards (data N, model 1) with N clips (first loss and gradients held
+to one card's on the same clips), (data 1, model N) with one (every loss
+held to the baseline's), and (data 1, model N) with one clip of 64x64
+latents (first loss held to a one-card forward), each with its warm step
+time and peak per rank. Prints the card names and power limits, the phase's
+lines, its report as JSON and rank 0's kernel launches of the mesh run.
+Needs a CUDA device.
 """
 from __future__ import annotations
 

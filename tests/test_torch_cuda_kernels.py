@@ -62,7 +62,11 @@ def test_flash_matches_plain(gen):
                      _randn(gen, B, H, Sk, D))
     _each([(2, 3, 100, 150, 40), (1, 2, 600, 77, 40), (3, 2, 65, 64, 72),
            (2, 1, 1000, 1, 80), (1, 4, 17, 333, 152), (2, 2, 130, 200, 160),
-           (1, 2, 70, 90, 504), (2, 1, 129, 257, 512)], check)
+           (1, 2, 70, 90, 504), (2, 1, 129, 257, 512),
+           # the training step under a "model" split of 2 and 4: 8 / model
+           # heads at the 40x40 latents' levels (self and text attention)
+           (2, 4, 1600, 1600, 40), (2, 2, 1600, 77, 40),
+           (2, 4, 400, 77, 80), (2, 2, 400, 400, 80)], check)
 
 
 # the flash kernel's tile edges: 64 query rows per consumer warpgroup, 192
@@ -395,8 +399,9 @@ def test_flash_bwd_matches_plain(gen):
     dK/dV pass's 128-key blocks, 64 at D = 160, and the dQ pass's 64-key
     steps), Sq = 1 and query tails (64-query steps, 32 at D = 160; the dQ
     pass's 128-query blocks), query blocks that wrap the 3-slot ring twice,
-    D = 40/80/160, the last head of token-major storage, and a dO whose D
-    is not contiguous (copied into the kernel's layout)."""
+    D = 40/80/160, the last head of token-major storage, a dO whose D is
+    not contiguous (copied into the kernel's layout), and the training
+    shapes at the 4 and 2 heads of a "model" split."""
     def fn(q, k, v):
         return A.flash_attention(q, k, v, q.shape[-1] ** -0.5)
 
@@ -419,7 +424,10 @@ def test_flash_bwd_matches_plain(gen):
            (plain, 1, 2, 130, 257, 80), (plain, 2, 2, 1, 129, 160),
            (storage, 2, 3, 150, 77, 40), (storage, 1, 2, 65, 129, 160),
            (storage, 1, 2, 389, 257, 40),
-           (strided_dout, 1, 2, 100, 77, 80)],
+           (strided_dout, 1, 2, 100, 77, 80),
+           # the training step under a "model" split of 2 and 4
+           (plain, 1, 4, 1600, 1600, 40), (plain, 1, 2, 1600, 77, 40),
+           (plain, 2, 4, 400, 77, 80), (plain, 2, 2, 400, 400, 80)],
           lambda f, *shape: f(*shape))
 
 
@@ -427,8 +435,9 @@ def test_small_seq_bwd_matches_plain(gen):
     """small_seq_attn_bwd's edges: key tails of 1 and 33, Sq = 1, S = 22
     and 64 (at D = 160 a one-slot ring), both layouts, the last head of
     token-major storage, units of 4 and 2 heads with a head group cut by H,
-    B*H large enough that every persistent CTA walks many units, and a dO
-    whose D is not contiguous."""
+    B*H large enough that every persistent CTA walks many units, a dO
+    whose D is not contiguous, and the token-major rows of a "model"
+    split."""
     def fn(q, k, v):
         return A.small_seq_attention(q, k, v, q.shape[-1] ** -0.5)
 
@@ -458,5 +467,10 @@ def test_small_seq_bwd_matches_plain(gen):
            (tokenmajor, 700, 22, 8, 40), (tokenmajor, 300, 22, 2, 160),
            (tokenmajor, 200, 22, 6, 80),
            (storage, 6, 4, 22, 22, 80), (storage, 3, 2, 64, 64, 160),
-           (strided_dout, 5, 2, 22, 22, 40)],
+           (strided_dout, 5, 2, 22, 22, 40),
+           # the motion modules under a "model" split of 2 and 4: rows of
+           # 8 / model heads, a pitch of H / model * D
+           (tokenmajor, 1600, 22, 4, 40), (tokenmajor, 1600, 22, 2, 40),
+           (tokenmajor, 400, 22, 4, 80), (tokenmajor, 400, 22, 2, 80),
+           (tokenmajor, 100, 22, 4, 160), (tokenmajor, 100, 22, 2, 160)],
           lambda f, *shape: f(*shape))

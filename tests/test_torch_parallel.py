@@ -18,8 +18,9 @@ its 8 virtual devices and against the port's own single-device runs.
 - run_infill_on_frames on 2 ranks at the JAX dry run's input, config and
   seeded weights, against the golden the JAX package froze from its
   single-device run, under the dry run's bounds; VV_MESH=0, the clip
-  length rounded up to the data axis, and the chunked driver writing one
-  file from rank 0.
+  length rounded up to the data axis, the chunked driver writing one
+  file from rank 0, and the sharding trace (each of the five programs
+  received a "data" block; no record without a sink).
 """
 import dataclasses
 import os
@@ -253,6 +254,13 @@ def test_pipeline_on_two_ranks_matches_dryrun_golden(tmp_path,
         assert r["no_mesh_under_vv_mesh_0"]
         assert r["clip_rounded"] == 8
         assert r["windows"] == {"sharded": 1, "whole": 0}
+        # the sharding trace: every program received a block split over
+        # "data" (tests/test_infill_spmd.py's assertion of the JAX run);
+        # nothing is recorded without a sink
+        assert r["recorded_without_sink"] == 0
+        assert r["sharded_programs"] == sorted([
+            "vae_encode", "vae_decode", "denoise_window",
+            "propainter_stage1", "propainter_window"]), r["sharded_programs"]
     assert [r["writer"] for r in ranks] == [True, False]
     got = ranks[0]["frames"]
     np.testing.assert_array_equal(ranks[1]["frames"], got)

@@ -209,7 +209,8 @@ def dryrun_pipeline(cfg, weights, frames, masks, files):
     up to the data axis); the chunked driver over `files` (color, mask,
     out) on the mesh with seeded weights; then, once the JAX package's
     weights are in the pickles `weights` names, run_infill_on_frames at
-    the JAX dry run's config with those weights and its noise."""
+    the JAX dry run's config with those weights and its noise, under a
+    sharding trace (the programs that received a block split over "data")."""
     import dataclasses
 
     from videovanish_tpu_torch.core.mesh import is_writer
@@ -234,6 +235,14 @@ def dryrun_pipeline(cfg, weights, frames, masks, files):
                                   max_img_size=64, device="cpu")
     out["chunked_frames"] = probe_video(path)[0]
 
+    # without a sink, record_sharding records nothing
+    from videovanish_tpu_torch.utils import observability as obs
+    probe = []
+    obs.trace_shardings(probe)
+    obs.trace_shardings(None)
+    obs.record_sharding("vae_encode", frames=torch.zeros(1))
+    out["recorded_without_sink"] = len(probe)
+
     de_params, noise = _wait_for(weights["diffueraser"])
     pp_params, _ = _wait_for(weights["propainter"])
     mesh = infill._get_mesh("cpu")
@@ -247,7 +256,133 @@ def dryrun_pipeline(cfg, weights, frames, masks, files):
     infill.last_ckpt = "2-Step"
     infill.propainter = Propainter(config=cfg.propainter, params=pp_params,
                                    device="cpu", mesh=mesh)
-    out["frames"] = np.stack(infill.run_infill_on_frames(
-        frames, masks, mask_dilation_iter=2, max_img_size=64, device="cpu"))
+    trace = []
+    obs.trace_shardings(trace)
+    try:
+        out["frames"] = np.stack(infill.run_infill_on_frames(
+            frames, masks, mask_dilation_iter=2, max_img_size=64,
+            device="cpu"))
+    finally:
+        obs.trace_shardings(None)
+    # the programs that received an operand split over "data"
+    out["sharded_programs"] = sorted({
+        prog for prog, specs in trace
+        if any(s and s[0] == "data" for s in specs.values())})
     out["windows"] = dict(infill.video_inpainting_sd.window_split)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the trainer on a mesh
+# ---------------------------------------------------------------------------
+def _tiny_trainer(dims, mesh, params, remat=False):
+    """A trainer of the tiny UNet and BrushNet (dims = (channels, layers,
+    heads, context width)) on `mesh` (or one device), at `params`."""
+    from videovanish_tpu_torch.models.diffueraser.brushnet import (
+        BrushNetModel,
+    )
+    from videovanish_tpu_torch.models.diffueraser.unet import UNetCondition
+    from videovanish_tpu_torch.train import make_train_step
+    ch, layers, heads, ctx = dims
+    init_fn, step_fn = make_train_step(
+        UNetCondition(4, 4, ch, layers, heads, ctx),
+        BrushNetModel(9, ch, layers, heads, ctx), mesh, remat=remat,
+        device="cpu")
+    return init_fn(params), step_fn
+
+
+def _whole_state(state, mesh) -> dict:
+    """The state's params, mu and nu gathered to whole numpy arrays (a
+    collective: every rank of the mesh calls it)."""
+    from videovanish_tpu_torch.parallel import gather_state_dict
+    trees = {"params": state.params, "mu": state.opt_state["mu"],
+             "nu": state.opt_state["nu"]}
+    return {slot: {m: {k: v.detach().numpy().copy() for k, v in
+                       gather_state_dict(tree[m], mesh).items()}
+                   for m in tree}
+            for slot, tree in trees.items()}
+
+
+def _replicated_differ(state, mesh) -> list:
+    """The replicated tensors (params, mu, nu) that differ anywhere between
+    the ranks of this rank's "model" group: their keys."""
+    from videovanish_tpu_torch.core.mesh import MODEL_AXIS, all_gather_cat
+    from videovanish_tpu_torch.parallel import split_dim
+    group = mesh.get_group(MODEL_AXIS)
+    bad = []
+    for slot, tree in (("params", state.params),
+                       ("mu", state.opt_state["mu"]),
+                       ("nu", state.opt_state["nu"])):
+        for m in tree:
+            for k, v in tree[m].items():
+                if split_dim(k, v.ndim) is not None:
+                    continue
+                every = all_gather_cat(v.detach()[None], group)
+                if not all(torch.equal(every[0], e) for e in every[1:]):
+                    bad.append((slot, m, k))
+    return bad
+
+
+def train_on_meshes(dims, params, batch, t, noise, models, save_path=None):
+    """For each model-axis size of `models`, a mesh over every rank and a
+    trainer on it: whether init_fn kept shard_state_dict's shards of
+    `params`; one step on the given t and noise (the loss, and mu and nu
+    gathered whole); where the axis is above 1, whether the same step
+    with remat is bitwise the same, then a second step from a seeded
+    generator and the replicated tensors that differ across the model
+    group. With `save_path`: that state saved there, then (at model 1) a
+    step from a generator against the same step on one device (rank 0),
+    and the saved file restored on this mesh. Rank 0 returns the results,
+    the others None."""
+    from videovanish_tpu_torch.core.mesh import make_mesh
+    from videovanish_tpu_torch.parallel import shard_state_dict
+    from videovanish_tpu_torch.train import (
+        restore_train_state, save_train_state,
+    )
+    rank0 = dist.get_rank() == 0
+    out = {}
+    for model in models:
+        mesh = make_mesh("cpu", model_parallel=model)
+        shape = tuple(mesh.shape)
+        state, step_fn = _tiny_trainer(dims, mesh, params)
+        # init_fn kept this rank's shards of the whole parameters
+        kept = all(torch.equal(state.params[m][k], v) for m in params
+                   for k, v in shard_state_dict(params[m], mesh).items())
+        state, loss = step_fn(state, batch, t=t, noise=noise)
+        whole = _whole_state(state, mesh)
+        res = {"loss": float(loss), "mu": whole["mu"], "nu": whole["nu"],
+               "init_kept_shards": kept}
+        if model > 1:
+            # remat recomputes the forward's all-reduces in the backward
+            r_state, r_step = _tiny_trainer(dims, mesh, params, remat=True)
+            r_state, r_loss = r_step(r_state, batch, t=t, noise=noise)
+            r_whole = _whole_state(r_state, mesh)
+            res["remat_bitwise"] = float(r_loss) == res["loss"] and all(
+                np.array_equal(r_whole[slot][m][k], v)
+                for slot in whole for m in whole[slot]
+                for k, v in whole[slot][m].items())
+            del r_state, r_step
+            state, _ = step_fn(state, batch, torch.Generator().manual_seed(5))
+            res["replicated_differ"] = _replicated_differ(state, mesh)
+            if save_path:
+                save_train_state(save_path, state)
+                res["saved"] = _whole_state(state, mesh)
+        out[shape] = res
+    if save_path:
+        mesh = make_mesh("cpu", model_parallel=1)
+        shape = tuple(mesh.shape)
+        gen = {}
+        for where, m in [("mesh", mesh)] + ([("single", None)] if rank0
+                                            else []):
+            state, step_fn = _tiny_trainer(dims, m, params)
+            state, loss = step_fn(state, batch,
+                                  torch.Generator().manual_seed(11))
+            whole = _whole_state(state, m)
+            gen[where] = {"loss": float(loss), "mu": whole["mu"],
+                          "nu": whole["nu"]}
+        out["generator"] = gen
+        state, _ = _tiny_trainer(dims, mesh, params)
+        state = restore_train_state(save_path, state)
+        out["restored"] = (shape, state.step, state.opt_state["count"],
+                           _whole_state(state, mesh))
+    return out if rank0 else None

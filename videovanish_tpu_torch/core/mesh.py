@@ -19,6 +19,7 @@ over "model".
 """
 from __future__ import annotations
 
+import contextvars
 import os
 from typing import Callable, Optional
 
@@ -205,6 +206,17 @@ def gather_blocks(mesh, local: torch.Tensor, n: int) -> torch.Tensor:
     return all_gather_cat(local, mesh.get_group(DATA_AXIS))[:n]
 
 
+# the blocks run_sharded is handing its function, while it runs
+_BLOCKS: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "vv_data_blocks", default=())
+
+
+def is_data_block(t) -> bool:
+    """True for a tensor that run_sharded handed the running function as
+    this rank's block of an axis split over "data"."""
+    return any(t is b for b in _BLOCKS.get())
+
+
 def run_sharded(mesh, fn: Callable, *xs: torch.Tensor, even: bool = True):
     """fn on this rank's block of the leading (frame) axis of every x, and
     its output (a tensor or a tuple of them) gathered over "data" in frame
@@ -222,7 +234,12 @@ def run_sharded(mesh, fn: Callable, *xs: torch.Tensor, even: bool = True):
     if pad:
         xs = tuple(torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
                    for x in xs)
-    out = fn(*(x[index * per:(index + 1) * per] for x in xs))
+    blocks = tuple(x[index * per:(index + 1) * per] for x in xs)
+    mark = _BLOCKS.set(blocks)
+    try:
+        out = fn(*blocks)
+    finally:
+        _BLOCKS.reset(mark)
     group = mesh.get_group(DATA_AXIS)
     if isinstance(out, tuple):
         return tuple(all_gather_cat(o, group)[:n] for o in out)

@@ -6,6 +6,13 @@ names are the diffusers checkpoint keys (`to_out.0`, `ff.net.0.proj`,
 converter. Attention goes through ops.attention (the Hopper kernels on the
 card); GroupNorm and LayerNorm keep f32 statistics and f32 parameters
 whatever the activation type.
+
+Attention, FeedForward and TimestepEmbedding run tensor-parallel when their
+`model_shard` is set (parallel/sharding.py `shard_module_`, the trainer on a
+mesh with a "model" axis above 1): their split parameters are this rank's
+shards, the input enters through `copy_to_model` and the row-split output
+layer sums the ranks' partial products. Without it they are the plain
+layers.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch.nn.functional as F
 
 from videovanish_tpu_torch.ops.attention import attention, attention_tokenmajor
 from videovanish_tpu_torch.ops.groupnorm import group_norm, group_norm_silu
+from videovanish_tpu_torch.parallel.sharding import copy_to_model, row_linear
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -40,6 +48,7 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 class TimestepEmbedding(nn.Module):
     """linear -> SiLU -> linear (diffusers TimestepEmbedding)."""
+    model_shard = None
 
     def __init__(self, in_dim: int, emb_dim: int):
         super().__init__()
@@ -47,7 +56,9 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = nn.Linear(emb_dim, emb_dim)
 
     def forward(self, t_emb):
-        return self.linear_2(F.silu(self.linear_1(t_emb)))
+        s = self.model_shard
+        return row_linear(self.linear_2, F.silu(self.linear_1(
+            copy_to_model(t_emb, s))), s)
 
 
 class GroupNorm(nn.Module):
@@ -113,7 +124,9 @@ class AttentionCache:
 
 
 class Attention(nn.Module):
-    """Multi-head attention (self or cross) over token-major (B, S, C)."""
+    """Multi-head attention (self or cross) over token-major (B, S, C);
+    heads / model of the heads on this rank under a `model_shard`."""
+    model_shard = None
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None,
@@ -129,6 +142,8 @@ class Attention(nn.Module):
     def forward(self, x, context=None, t_frames: Optional[int] = None,
                 cache: Optional[AttentionCache] = None,
                 attn_fn: Optional[Callable] = None):
+        shard = self.model_shard
+        heads = self.heads if shard is None else self.heads // shard.size
         if t_frames is not None:
             # temporal self-attention: (B*T, S, C) in and out; the tokens
             # cross into (B*S, T, C) once before the projections and back
@@ -139,34 +154,36 @@ class Attention(nn.Module):
             B = BT // t_frames
             h = x.reshape(B, t_frames, S, C).transpose(1, 2) \
                 .reshape(B * S, t_frames, C)
+            h = copy_to_model(h, shard)
             q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
             if attn_fn is None:
-                out = attention_tokenmajor(q, k, v, self.heads)
+                out = attention_tokenmajor(q, k, v, heads)
             else:
                 def split(t):
-                    return t.view(B * S, t_frames, self.heads,
+                    return t.view(B * S, t_frames, heads,
                                   self.head_dim).transpose(1, 2)
 
                 out = attn_fn(split(q), split(k), split(v)).transpose(1, 2) \
                     .reshape(B * S, t_frames, -1)
-            out = self.to_out[0](out)
+            out = row_linear(self.to_out[0], out, shard)
             return out.reshape(B, S, t_frames, -1).transpose(1, 2) \
                 .reshape(BT, S, -1)
         if cache is not None and cache.replay:
             return cache.outputs[self]
         B, S, _ = x.shape
-        ctx = x if context is None else context
+        x = copy_to_model(x, shard)
+        ctx = x if context is None else copy_to_model(context, shard)
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         if context is None:
-            out = attention_tokenmajor(q, k, v, self.heads)
+            out = attention_tokenmajor(q, k, v, heads)
         else:
             def split(t):
-                return t.view(B, -1, self.heads, self.head_dim) \
+                return t.view(B, -1, heads, self.head_dim) \
                     .permute(0, 2, 1, 3)
 
             out = attention(split(q), split(k), split(v))
             out = out.permute(0, 2, 1, 3).reshape(B, S, -1)
-        out = self.to_out[0](out)
+        out = row_linear(self.to_out[0], out, shard)
         if cache is not None:
             cache.outputs[self] = out
         return out
@@ -184,6 +201,9 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
+    """GEGLU -> Linear; the hidden width split under a `model_shard`."""
+    model_shard = None
+
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         # index 1 is diffusers' dropout slot (no parameters)
@@ -191,7 +211,8 @@ class FeedForward(nn.Module):
                                   nn.Linear(dim * mult, dim)])
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        s = self.model_shard
+        return row_linear(self.net[2], self.net[0](copy_to_model(x, s)), s)
 
 
 class BasicTransformerBlock(nn.Module):

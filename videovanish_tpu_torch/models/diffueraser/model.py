@@ -66,7 +66,7 @@ from videovanish_tpu_torch.ops.resize import (
     resize_nearest_2d,
 )
 from videovanish_tpu_torch.utils.observability import (
-    record_stage, stage_timer,
+    record_sharding, record_stage, stage_timer,
 )
 
 # (global frame indices, (h8, w8, C)) -> (T, h8, w8, C) noise
@@ -242,6 +242,7 @@ class DiffuEraser:
 
     def _decode(self, z: torch.Tensor) -> torch.Tensor:
         """Latents (N, 4, h8, w8) f32 -> RGB (N, H, W, 3) uint8."""
+        record_sharding("vae_decode", latents=z)
         x = self.vae.decode((z / self.cfg.vae_scaling_factor).to(self.dtype))
         x01 = ((x.float() + 1.0) / 2.0).clamp(0.0, 1.0)
         return torch.round(x01 * 255.0).clamp(0, 255).to(torch.uint8) \
@@ -254,6 +255,7 @@ class DiffuEraser:
         f32; prompt_emb (77, D). guidance > 0 runs classifier-free
         guidance against the null-text embedding. With `shard` the inputs
         are this rank's block of a window of t_frames frames."""
+        record_sharding("denoise_window", prior_lat=prior_lat)
         cfg, dt = self.cfg, self.dtype
         T = prior_lat.shape[0]
         steps = pcm_timesteps(cfg.num_inference_steps,
@@ -380,6 +382,7 @@ class DiffuEraser:
         pf_p = None if pf is None else padded(pf)
         lat_c, mlat_c, prior_c = [], [], []
         def encode_masked(fr, m):
+            record_sharding("vae_encode", frames=fr)
             x = fr.float() / 255.0
             return self._encode(x * (1.0 - m[..., None].float()))
 

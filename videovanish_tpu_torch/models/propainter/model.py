@@ -64,6 +64,7 @@ from videovanish_tpu_torch.ops.morphology import binary_dilation
 from videovanish_tpu_torch.ops.resize import (
     host_resize_bilinear_u8, host_resize_nearest_2d, plan_long_side,
 )
+from videovanish_tpu_torch.utils.observability import record_sharding
 
 _CONVS = (nn.Conv2d, nn.Conv3d, nn.Linear)
 
@@ -174,10 +175,12 @@ class Propainter:
         frames01 = fr.permute(0, 3, 1, 2).float() / 255.0
         masks1 = mk.float()[:, None]
         imgs = (frames01 * 2.0 - 1.0).to(dt)
-        fl_f = run_sharded(self.mesh, self.raft, imgs[:-1], imgs[1:],
-                           even=False)
-        fl_b = run_sharded(self.mesh, self.raft, imgs[1:], imgs[:-1],
-                           even=False)
+
+        def raft(a, b):
+            record_sharding("propainter_stage1", frames=a)
+            return self.raft(a, b)
+        fl_f = run_sharded(self.mesh, raft, imgs[:-1], imgs[1:], even=False)
+        fl_b = run_sharded(self.mesh, raft, imgs[1:], imgs[:-1], even=False)
         self._stage("raft", fl_f, fl_b)
         comp_f, comp_b = self.flow_comp.forward_bidirect_flow(
             fl_f, fl_b, masks1, self.mesh)
@@ -213,6 +216,7 @@ class Propainter:
         preds = [None] * len(plan)
         for ids in groups.values():
             def run(mine):
+                record_sharding("propainter_window", starts=mine)
                 return torch.stack([self._window(stage1, plan[i][0], NL,
                                                  plan[i][1])
                                     for i in mine.tolist()])

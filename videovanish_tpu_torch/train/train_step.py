@@ -1,5 +1,5 @@
 """DiffuEraser training step: epsilon-prediction MSE under the SD1.5 schedule
-with AdamW, on one card.
+with AdamW, on one card or on a ("data", "model") mesh.
 
 Port of videovanish_tpu/train/train_step.py. One step draws a timestep per
 clip (repeated over its frames) and unit-normal noise of the latents'
@@ -26,20 +26,49 @@ PyTorch's idiom inside, the JAX semantics outside:
     PRNG key), or are given, so that tests can feed JAX's draws;
   * checkpoints are torch.save files (the JAX package writes orbax).
 The attention gradients run through the hand-written backward kernels
-(ops/attention.py). The mesh (data and tensor parallelism) is not ported:
-one card.
+(ops/attention.py).
+
+On a mesh (a DeviceMesh from core/mesh.make_mesh; one process a card, as
+torchrun starts them) the JAX package's shardings become explicit
+collectives on plain local tensors:
+  * "data": every rank is given the whole batch and keeps its block of
+    clips; t and noise are drawn (or given) for the whole batch and cut
+    the same way, so the result does not depend on the mesh's shape. The
+    gradients are averaged over "data" after the backward (one all-reduce
+    a bucket), and the loss is the whole batch's mean on every rank;
+  * "model": the attention, feed-forward and time-embedding parameters are
+    split by parallel/sharding.py's rules (the modules are cut to this
+    rank's shards in place) and those layers run Megatron's pattern. A
+    split parameter's gradient and AdamW moments stay on its shard; the
+    replicated ones are equal on every rank of the model group, bitwise,
+    since their gradients come from identical inputs.
+Remat recomputes the forward's collectives in the backward, in the same
+order on every rank. States come in whole (init_fn, a converted or
+restored state) and each rank keeps its shards; save_train_state writes
+the whole state from rank 0, so a file restores on any mesh or on one
+card. At a 1x1 mesh no collective runs and the step is the one-card step.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from videovanish_tpu_torch.core.mesh import (
+    DATA_AXIS, all_reduce_sum, barrier, data_coords, is_writer,
+)
 from videovanish_tpu_torch.models.diffueraser.scheduler import NoiseSchedule
+from videovanish_tpu_torch.parallel.sharding import (
+    batch_block, gather_tensor, local_of, model_shard, shard_module_,
+    shard_of, tag_shard_,
+)
 
 MODELS = ("unet", "brushnet")
+# gradients averaged over "data" in buckets of this many f32 elements
+BUCKET_NUMEL = 1 << 25
 
 
 class TrainState(NamedTuple):
@@ -47,7 +76,8 @@ class TrainState(NamedTuple):
     {...}}, f32, keyed as the modules' named_parameters (the checkpoint
     keys). opt_state: {"count": steps AdamW has taken, "mu": first moments,
     "nu": second moments}, the moments in the params' layout (optax's
-    ScaleByAdamState)."""
+    ScaleByAdamState). A trainer under a "model" split holds this rank's
+    shards, each tagged with its sharding.ModelShard."""
     step: int
     params: dict
     opt_state: dict
@@ -58,11 +88,14 @@ def make_train_step(unet, brushnet, mesh=None, learning_rate: float = 1e-5,
                     device=None):
     """Returns (init_fn, step_fn) training `unet` (UNetCondition) and
     `brushnet` (BrushNetModel) on `device` (the card unless the caller
-    asks for the CPU). The modules move there in f32.
+    asks for the CPU), on one device (mesh=None) or on `mesh`, a
+    ("data", "model") DeviceMesh of this device type (every rank builds
+    the same modules and calls the same functions). The modules move there
+    in f32; on a "model" axis above 1 they are cut to this rank's shards.
 
     init_fn(params=None) -> TrainState: params {"unet": state dict,
-      "brushnet": state dict} are loaded into the modules (None keeps
-      theirs); step 0, zero moments.
+      "brushnet": state dict}, whole tensors, are loaded into the modules
+      (this rank's shards; None keeps theirs); step 0, zero moments.
     step_fn(state, batch, generator=None, *, t=None, noise=None)
       -> (TrainState, loss): one AdamW step, in place. Batch (leading axis
       = clips, the JAX package's channel-last layout):
@@ -71,21 +104,25 @@ def make_train_step(unet, brushnet, mesh=None, learning_rate: float = 1e-5,
         mask_lat:   (B, T, h, w, 1)
         text_emb:   (B, 77, D)
       t (B,) integers in [0, 1000) and noise (the latents' shape) are drawn
-      from `generator` (t first) unless given.
+      from `generator` (t first) unless given. On a mesh the batch, t and
+      noise are the whole batch's on every rank, B a multiple of the data
+      axis, and every rank draws from an identically seeded generator.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step runs on one card (mesh=None): data and tensor "
-            "parallelism come with the port's multi-GPU slice")
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_train_step: no CUDA device (pass "
                            "device='cpu' to train on the CPU)")
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh for a trainer on "
+                         f"{device.type}")
     on_card = device.type == "cuda"
     schedule = NoiseSchedule()
     modules = {"unet": unet, "brushnet": brushnet}
+    shard = model_shard(mesh)
+    d_size = data_coords(mesh)[1]
     for m in modules.values():
         m.to(device=device, dtype=torch.float32).requires_grad_(True)
+        shard_module_(m, shard)
     named = {name: dict(m.named_parameters()) for name, m in modules.items()}
     flat = [p for name in MODELS for p in named[name].values()]
     opt = torch.optim.AdamW(flat, lr=learning_rate, betas=(0.9, 0.999),
@@ -103,6 +140,11 @@ def make_train_step(unet, brushnet, mesh=None, learning_rate: float = 1e-5,
                              for k, p in named[name].items()}
                       for name in MODELS}
                for slot, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
+    if shard is not None:
+        for name in MODELS:
+            for k, p in named[name].items():
+                for t in (p, moments["mu"][name][k], moments["nu"][name][k]):
+                    tag_shard_(t, shard)
 
     count = [0]  # AdamW's step count, as its step tensors hold it
 
@@ -112,7 +154,8 @@ def make_train_step(unet, brushnet, mesh=None, learning_rate: float = 1e-5,
     @torch.no_grad()
     def bind(state: TrainState) -> None:
         """Copy every tensor of `state` that is not the trainer's own into
-        the trainer's; set AdamW's step count where it differs."""
+        the trainer's (this rank's shard of a whole one); set AdamW's step
+        count where it differs."""
         for name in MODELS:
             if set(state.params[name]) != set(named[name]):
                 raise KeyError(f"{name}: the state's parameters are not the "
@@ -124,7 +167,7 @@ def make_train_step(unet, brushnet, mesh=None, learning_rate: float = 1e-5,
                                  (state.opt_state["nu"][name][k],
                                   opt.state[p]["exp_avg_sq"])):
                     if src is not dst:
-                        dst.copy_(src)
+                        dst.copy_(local_of(k, src, dst))
         if state.opt_state["count"] != count[0]:
             count[0] = int(state.opt_state["count"])
             for p in flat:
@@ -138,7 +181,7 @@ def make_train_step(unet, brushnet, mesh=None, learning_rate: float = 1e-5,
                         raise KeyError(f"{name}: the parameters are not "
                                        f"the module's")
                     for k, p in named[name].items():
-                        p.copy_(params[name][k])
+                        p.copy_(local_of(k, params[name][k], p))
             for p in flat:
                 for v in opt.state[p].values():
                     v.zero_()
@@ -153,17 +196,24 @@ def make_train_step(unet, brushnet, mesh=None, learning_rate: float = 1e-5,
     def step_fn(state: TrainState, batch: dict, generator=None, *, t=None,
                 noise=None):
         bind(state)
-        latents = batch["latents"].to(device, torch.float32)
-        B, T = latents.shape[:2]
+        B, T = batch["latents"].shape[:2]
+        if B % d_size:
+            raise ValueError(f"a batch of {B} clips does not split over a "
+                             f"data axis of {d_size}")
         if (t is None or noise is None) and generator is None:
             raise ValueError("step_fn draws t and noise from a "
                              "torch.Generator: pass one, or both tensors")
+        # the whole batch's draws on every rank, then this rank's clips
         if t is None:
             t = torch.randint(0, schedule.num_train_timesteps, (B,),
                               generator=generator, device=device)
         if noise is None:
-            noise = torch.randn(latents.shape, generator=generator,
+            noise = torch.randn(batch["latents"].shape, generator=generator,
                                 device=device, dtype=torch.float32)
+        batch = {k: batch_block(mesh, v) for k, v in batch.items()}
+        t, noise = batch_block(mesh, t), batch_block(mesh, noise)
+        latents = batch["latents"].to(device, torch.float32)
+        B = latents.shape[0]
         t_full = t.to(device).long().repeat_interleave(T)  # (B*T,)
 
         def nchw(x):  # (B, T, h, w, C) -> (B*T, C, h, w)
@@ -193,6 +243,12 @@ def make_train_step(unet, brushnet, mesh=None, learning_rate: float = 1e-5,
             eps = forward(unet_fwd, x_t, t_full, txt, bd, bm, bu)
         loss = torch.mean(torch.square(eps.float() - eps_true))
         loss.backward()
+        if d_size > 1:
+            # every rank's clips are as many: the whole batch's mean is
+            # the mean of the ranks'
+            group = mesh.get_group(DATA_AXIS)
+            average_gradients(flat, group, d_size)
+            loss = all_reduce_sum(loss.detach().clone(), group) / d_size
         opt.step()
         count[0] += 1
         return state_of(state.step + 1), loss.detach()
@@ -200,24 +256,63 @@ def make_train_step(unet, brushnet, mesh=None, learning_rate: float = 1e-5,
     return init_fn, step_fn
 
 
+@torch.no_grad()
+def average_gradients(params, group, size: int) -> None:
+    """Each parameter's .grad averaged over `group` (`size` ranks), in
+    place: the gradients flattened into buckets of up to BUCKET_NUMEL
+    elements, one all-reduce a bucket, in the same order on every rank."""
+    grads = [p.grad for p in params if p.grad is not None]
+    while grads:
+        bucket, n = [], 0
+        while grads and (not bucket or n + grads[0].numel() <= BUCKET_NUMEL):
+            n += grads[0].numel()
+            bucket.append(grads.pop(0))
+        buf = all_reduce_sum(torch.cat([g.reshape(-1) for g in bucket]),
+                             group)
+        buf.div_(size)
+        for g, part in zip(bucket, buf.split([g.numel() for g in bucket])):
+            g.copy_(part.view_as(g))
+
+
+@torch.no_grad()
 def save_train_state(path: str, state: TrainState) -> None:
     """Persist a training run (step, params, AdamW's count and moments) with
-    torch.save; `restore_train_state` reads it back."""
+    torch.save; `restore_train_state` reads it back. The file holds whole
+    tensors: where there are several ranks every rank calls this, the
+    shards are gathered over "model" one tensor at a time (no second copy
+    of the state on the card) and rank 0 alone writes; every rank returns
+    once the file is there."""
+    writer = is_writer()
+
     def host(tree):
-        return {name: {k: v.detach().cpu() for k, v in tree[name].items()}
-                for name in MODELS}
-    torch.save({"step": int(state.step), "params": host(state.params),
-                "opt_state": {"count": int(state.opt_state["count"]),
-                              "mu": host(state.opt_state["mu"]),
-                              "nu": host(state.opt_state["nu"])}}, path)
+        out = {}
+        for name in MODELS:
+            out[name] = {}
+            for k, v in tree[name].items():
+                # a collective under a model split: every rank takes part
+                whole = gather_tensor(k, v, shard_of(v))
+                out[name][k] = whole.detach().cpu() if writer else None
+                del whole
+        return out
+    tree = {"step": int(state.step), "params": host(state.params),
+            "opt_state": {"count": int(state.opt_state["count"]),
+                          "mu": host(state.opt_state["mu"]),
+                          "nu": host(state.opt_state["nu"])}}
+    if writer:
+        torch.save(tree, path + ".tmp")
+        os.replace(path + ".tmp", path)
+    barrier()
 
 
 @torch.no_grad()
 def restore_train_state(path: str, like: TrainState) -> TrainState:
     """The state saved at `path`, read into `like`'s tensors in place (the
     trainer's own, so the next step_fn continues from it without a second
-    copy of the state on the card). Keys and shapes must match."""
-    tree = torch.load(path, map_location="cpu", weights_only=True)
+    copy of the state on the card). Keys and whole shapes must match. On a
+    mesh every rank reads the whole file (mapped, not loaded) and keeps its
+    shards, so a file saved on any mesh restores on any other."""
+    tree = torch.load(path, map_location="cpu", weights_only=True,
+                      mmap=True)
     pairs = [(tree["params"], like.params)] + [
         (tree["opt_state"][slot], like.opt_state[slot])
         for slot in ("mu", "nu")]
@@ -227,7 +322,7 @@ def restore_train_state(path: str, like: TrainState) -> TrainState:
                 raise KeyError(f"{path}: {name}'s keys differ from the "
                                f"state's")
             for k, v in dst[name].items():
-                v.copy_(src[name][k])
+                v.copy_(local_of(k, src[name][k], v))
     return TrainState(tree["step"], like.params,
                       {"count": tree["opt_state"]["count"],
                        "mu": like.opt_state["mu"],

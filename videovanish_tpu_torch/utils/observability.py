@@ -9,12 +9,17 @@ videovanish_tpu/utils/observability.py).
   and, where there is a card, CUDA activity) of the region, written there
   as a Chrome trace.
 - `trace_annotation`: a named range in that trace.
+- `trace_shardings` / `record_sharding`: with a sink installed, what each
+  program (vae_encode, vae_decode, denoise_window, propainter_stage1,
+  propainter_window) receives on this rank: per tensor ("data",) where it
+  is this rank's block of a frame axis split over the mesh's "data" axis
+  (a block `core/mesh.run_sharded` hands its function), () where it is the
+  whole axis. The port's tensors are plain local ones, so the spec says
+  which of the two the rank was given, as the JAX package's records the
+  sharding of the global array its program was compiled for.
 
 The timers read the host clock: the card runs behind it, so work left in
-the queue bills to the stage that next waits on the device. The JAX
-package's
-`record_sharding` and `trace_shardings` record mesh shardings; the port
-runs on one card and has no mesh, so they are left out.
+the queue bills to the stage that next waits on the device.
 """
 from __future__ import annotations
 
@@ -78,6 +83,27 @@ def record_stage(stage: str, seconds: float, **fields) -> None:
     for sink in _STAGE_COLLECTORS:
         sink.append((stage, seconds, fields))
     _emit("stage", name=stage, seconds=round(seconds, 4), **fields)
+
+
+_SHARDING_TRACE: list | None = None
+
+
+def trace_shardings(into: list | None) -> None:
+    """Install (or clear, with None) a sink that `record_sharding` appends
+    (program, {name: spec}) to."""
+    global _SHARDING_TRACE
+    _SHARDING_TRACE = into
+
+
+def record_sharding(program: str, **tensors) -> None:
+    """Record {name: ("data",) or ()} of the tensors entering `program`
+    (see above). A no-op beyond a None check unless a sink is installed."""
+    if _SHARDING_TRACE is None:
+        return
+    from videovanish_tpu_torch.core.mesh import is_data_block
+    _SHARDING_TRACE.append((program, {
+        name: ("data",) if is_data_block(t) else ()
+        for name, t in tensors.items()}))
 
 
 @contextlib.contextmanager
