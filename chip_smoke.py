@@ -118,6 +118,29 @@ of one machine (one is enough).
    and its file equals the uninterrupted chunked file bitwise). Prints
    each run's wall time, peak memory and VV_LOG stage split, seconds per
    chunk and the prior's seconds inside each chunk; deletes the files;
+7a. the GUI's four jobs (`videovanish_tpu_torch/gui/jobs.py`, what the
+   window's buttons run), each on a threading.Thread as the window's
+   QThread runs it, at the default config on a 30-frame 1280x720 color
+   and mask file pair written by the port, the annotations held in the
+   window's AnnotationStore (sam2_annotations' keyframes and a click at
+   the cursor, frame 5): Generate Mask cancelled after SAM2 ran and Make
+   Vanish cancelled before the infill (each returns None and writes no
+   file); the 1-frame mask preview at the cursor, equal bitwise to
+   run_sam2_on_frames on that frame with its keyframe remapped to 0; the
+   22-frame infill preview from the cursor (preview_img_size 640: 360x640
+   inference, 45x80 latents) cold and GUI_WARM_RUNS times warm, equal
+   bitwise to run_infill_on_frames(..., preview=True) on the same frames,
+   pixels outside the feathered mask equal to the input, then the same at
+   frame 25 (5 frames); the warm preview twice more under torch.profiler
+   started on the job's thread, without and with with_flops, split by
+   stage with utils/profiling (from the with_flops run: ms, share and MFU
+   against the card's bf16 peak, the IDLE share, the projection onto 4
+   cards; from the other, whose host cost is lower, the IDLE share and
+   the device ms over each unprofiled warm wall); Generate Mask and Make
+   Vanish, their files equal bitwise to the sam2_masker and diffuerase
+   CLIs' on the same inputs. Checks that
+   every instance of GUI_INSTANCES was launched; prints each job's wall
+   time and peak memory; deletes the files;
 8. weights: writes a synthetic file set in the published layouts to
    build/weights_smoke (the keys and shapes of
    tests/fixtures/manifests/*.json, seeded values: the DiffuEraser UNet in
@@ -140,9 +163,9 @@ of one machine (one is enough).
    files;
 9. prints one {"kernels": [...]} line, the card line, and last
    {"ok": true, "device": {...}}. A kernel row's `launches` counts the two
-   requests with the prior passed in, the SAM2 request and the training
-   phase (each instance is launched by one of them; `launches_train_phase`,
-   `launches_prior_request`,
+   requests with the prior passed in, the SAM2 request, the training
+   phase and the GUI's jobs (each instance is launched by one of them;
+   `launches_train_phase`, `launches_gui_phase`, `launches_prior_request`,
    `launches_sam2_request`, `launches_files_phase` (the chunked CLI run),
    `launches_weights_phase` and `launches_mesh_phase` give the other runs
    apart).
@@ -480,6 +503,13 @@ def kernel_cases():
     cases += [flash(128, 8, 256, 256, 72), flash(8, 8, 4096, 4096, 72),
               flash(128, 16, 64, 256, 72), flash(2, 8, 22, 4096, 16),
               flash(2, 1, 4096, 4096, 256)]
+    # the GUI's 22-frame infill preview at 1280x720 (360x640 inference,
+    # 45x80 latents): levels 0-2 (3600, 920 and 240 tokens; text
+    # cross-attention at level 2 is too short for flash) and the VAE's mid
+    # block
+    cases += [flash(22, 8, 3600, 3600, 40), flash(22, 8, 3600, 77, 40),
+              flash(22, 8, 920, 920, 80), flash(22, 8, 920, 77, 80),
+              flash(22, 8, 240, 240, 160), flash(8, 1, 3600, 3600, 512)]
     cases += [
         # temporal attention over the 22-frame window, 544x960 inference:
         # levels 0, 1 and 2 (68x120, 34x60, 17x30 latents) and level 3 with
@@ -518,6 +548,27 @@ def kernel_cases():
          (8192, 16, 288, 4, 64)),
         ("small_seq_attn[bhsd,N=1024,D=72,S=16]", pk, "packed",
          (1024, 16, 288, 4, 64)),
+        # the GUI's infill preview: temporal attention at levels 0-3
+        # (45x80, 23x40, 12x20 and 6x10 latents) and the mid block's
+        # 6x10-token spatial attention
+        ("small_seq_attn[tokenmajor,N=3600,D=40,S=22]", tm, "tokenmajor",
+         (3600, 22, 320, 8)),
+        ("small_seq_attn[tokenmajor,N=920,D=80,S=22]", tm, "tokenmajor",
+         (920, 22, 640, 8)),
+        ("small_seq_attn[tokenmajor,N=240,D=160,S=22]", tm, "tokenmajor",
+         (240, 22, 1280, 8)),
+        ("small_seq_attn[tokenmajor,N=60,D=160,S=22]", tm, "tokenmajor",
+         (60, 22, 1280, 8)),
+        ("small_seq_attn[tokenmajor,N=22,D=160,S=60]", tm, "tokenmajor",
+         (22, 60, 1280, 8)),
+        # the GUI's Generate Mask on 30 frames: Hiera-L on the last encode
+        # chunk of 6 frames (stage-1 and stage-4 windows, the stage-2 entry)
+        ("small_seq_attn[tokenmajor,N=6144,D=72,S=64]", tm, "tokenmajor",
+         (6144, 64, 144, 2)),
+        ("small_seq_attn[tokenmajor,N=96,D=72,S=64]", tm, "tokenmajor",
+         (96, 64, 1152, 16)),
+        ("small_seq_attn[bhsd,N=6144,D=72,S=16]", pk, "packed",
+         (6144, 16, 288, 4, 64)),
     ]
     # the training phase's forward instances that inference does not launch
     known = {c[0] for c in cases}
@@ -2210,6 +2261,395 @@ def run_files_phase(launches_0, seed: int = 0):
     return counts, report
 
 
+# the GUI phase: the app's four jobs (videovanish_tpu_torch/gui/jobs.py) on
+# a GUI_FRAMES-frame 1280x720 file pair, the cursor at GUI_CURSOR (22 frames
+# ahead of it) and at GUI_TAIL_CURSOR (5 left)
+GUI_FRAMES = 30
+GUI_CURSOR = 5
+GUI_TAIL_CURSOR = 25
+GUI_WARM_RUNS = 3  # unprofiled warm previews from GUI_CURSOR
+# the kernel instances the 22-frame infill preview launches at 1280x720
+# (360x640 inference, 45x80 latents), and the instances of SAM2's last
+# 6-frame encode chunk in Generate Mask's 30 frames
+GUI_INSTANCES = (
+    "flash_attn_fwd[D=40,Sq=3600,Sk=3600]", "flash_attn_fwd[D=40,Sq=3600,Sk=77]",
+    "flash_attn_fwd[D=80,Sq=920,Sk=920]", "flash_attn_fwd[D=80,Sq=920,Sk=77]",
+    "flash_attn_fwd[D=160,Sq=240,Sk=240]",
+    "flash_attn_fwd[D=512,Sq=3600,Sk=3600]",
+    "small_seq_attn[tokenmajor,N=3600,D=40,S=22]",
+    "small_seq_attn[tokenmajor,N=920,D=80,S=22]",
+    "small_seq_attn[tokenmajor,N=240,D=160,S=22]",
+    "small_seq_attn[tokenmajor,N=60,D=160,S=22]",
+    "small_seq_attn[tokenmajor,N=22,D=160,S=60]",
+    "small_seq_attn[tokenmajor,N=6144,D=72,S=64]",
+    "small_seq_attn[tokenmajor,N=96,D=72,S=64]",
+    "small_seq_attn[bhsd,N=6144,D=72,S=16]",
+)
+
+
+def on_thread(job, cancel_at=None, profile=None) -> dict:
+    """job(report, is_canceled) on a threading.Thread, as the window's
+    QThread runs it. With cancel_at the job is cancelled once a report
+    reaches that percentage (at 0, before it starts); with profile (a dict
+    of torch.profiler.profile's options, {} for none) it runs under
+    torch.profiler (CPU and CUDA activity) started on its own thread,
+    whose op callbacks are per thread. Returns {"result",
+    "seconds" (the job until the card is done, without the profiler's
+    start and its parse of the trace), "peak_gib", "launches" (the kernel
+    launches it made), "prof"}; an exception in the job is raised here."""
+    import threading
+
+    import torch
+    from videovanish_tpu_torch.ops import attention as A
+
+    out, cancel = {}, threading.Event()
+    if cancel_at == 0:
+        cancel.set()
+
+    def report(pct, status="", **_):
+        if cancel_at is not None and pct >= cancel_at:
+            cancel.set()
+
+    def timed_job():
+        t0 = time.perf_counter()
+        out["result"] = job(report, cancel.is_set)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+
+    def run():
+        try:
+            if profile is not None:
+                acts = [torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts,
+                                            **profile) as prof:
+                    timed_job()
+                out["prof"] = prof
+            else:
+                timed_job()
+        except BaseException as e:  # raised on the calling thread
+            out["error"] = e
+
+    before = dict(A.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = threading.Thread(target=run, name="vv-gui-job", daemon=True)
+    t.start()
+    t.join(timeout=600)
+    if t.is_alive():
+        raise RuntimeError("a GUI job did not finish in 600 s")
+    if "error" in out:
+        raise out["error"]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["launches"] = {k: n - before.get(k, 0) for k, n in A.LAUNCHES.items()
+                       if n - before.get(k, 0)}
+    return out
+
+
+def gui_stage_split(prof, lean, T: int, warm_s) -> dict:
+    """The profiled preview's per-stage device split (utils/profiling):
+    from `prof` (with_flops), ms, share and MFU of each stage against the
+    card's bf16 peak, the IDLE and unstaged shares, the device stages'
+    projection onto 4 cards, and the attention kernels' ms by stage (all
+    of them must lie in a stage); from `lean` (the same preview profiled
+    without with_flops, whose host cost is lower), its IDLE share and
+    device ms, and that device ms over each unprofiled warm wall `warm_s`
+    (a ratio across runs: the busy share of the unprofiled request)."""
+    import statistics
+
+    from videovanish_tpu_torch.config import default_config
+    from videovanish_tpu_torch.models.propainter.model import window_plan
+    from videovanish_tpu_torch.utils import profiling
+
+    peak = profiling.peak_tflops()
+    splits = []
+    for p in (prof, lean):
+        rows = profiling.rows_from_profiler(p)
+        if {r["host_or_device"] for r in rows} != {"device"}:
+            raise RuntimeError("the profiled preview has no CUDA activity")
+        split = profiling.aggregate_programs(rows, peak)
+        share = sum(d["share"] for d in split.values())
+        if abs(share - 1.0) > 1e-3:
+            raise RuntimeError(f"stage shares sum to {share}")
+        splits.append((rows, split))
+    (rows, stages), (_, lean_stages) = splits
+    pcfg = default_config().propainter
+    n_windows = len(window_plan(min(T, pcfg.subvideo_length),
+                                pcfg.neighbor_length, pcfg.ref_stride)[1])
+    kernel_ms = {}
+    for r in rows:
+        if r["type"] in ("flash_attn_fwd", "small_seq_attn"):
+            stage = profiling.program_of(r["operation"])
+            kernel_ms[stage] = kernel_ms.get(stage, 0.0) + \
+                r["total_self_time"] / 1e3
+    if not kernel_ms or profiling.UNSTAGED in kernel_ms:
+        raise RuntimeError(f"attention kernels outside the stages: "
+                           f"{kernel_ms}")
+    lean_ms = sum(d["ms"] for k, d in lean_stages.items() if k != "IDLE")
+    busy = [lean_ms / (w * 1e3) for w in warm_s]
+    return {"stages": stages, "idle_share": stages.get("IDLE", {}).get(
+                "share", 0.0),
+            "unstaged_share": stages.get(profiling.UNSTAGED, {}).get(
+                "share", 0.0),
+            "device_ms": sum(d["ms"] for k, d in stages.items()
+                             if k != "IDLE"),
+            "lean_idle_share": lean_stages.get("IDLE", {}).get("share", 0.0),
+            "lean_device_ms": lean_ms,
+            "warm_seconds": list(warm_s),
+            "busy_share_of_warm_walls": busy,
+            "busy_share_of_median_warm_wall":
+                lean_ms / (statistics.median(warm_s) * 1e3),
+            "attention_ms_by_stage": kernel_ms,
+            # the device's stages (IDLE, inflated by the profiler's host
+            # cost, left out) under the mesh's sharding on 4 cards
+            "projection_4": profiling.project_multichip(
+                {k: d for k, d in stages.items() if k != "IDLE"},
+                n_chips=4, frames=T, n_windows=n_windows),
+            "peak_tflops": peak}
+
+
+def run_gui_phase(seed: int = 0):
+    """The interactive app's four jobs at the default config, each on a
+    worker thread through `videovanish_tpu_torch.gui.jobs`, on a 30-frame
+    1280x720 color and mask file pair written by the port: the 1-frame
+    mask preview at the cursor (frame 5) against run_sam2_on_frames on that
+    frame with its keyframe remapped to 0, bitwise; the 22-frame infill
+    preview from the cursor, cold, warm (GUI_WARM_RUNS times) and under
+    the profiler (without and with with_flops), against
+    run_infill_on_frames(..., preview=True) bitwise, pixels outside the
+    feathered mask equal to the input, 45x80 latents; the preview at frame
+    25 (5 frames) the same way; Generate Mask and Make Vanish against the
+    sam2_masker and diffuerase CLIs' files on the same inputs, bitwise;
+    both cancelled (Generate Mask after SAM2 ran, Make Vanish before the
+    infill): None and no file. Returns (the jobs' launch counts, report).
+    The files are deleted at the end."""
+    import numpy as np
+    import torch
+    from videovanish_tpu_torch.cli import diffuerase, sam2_masker
+    from videovanish_tpu_torch.config import default_config
+    from videovanish_tpu_torch.gui import jobs
+    from videovanish_tpu_torch.gui.annotations import AnnotationStore
+    from videovanish_tpu_torch.pipeline import infill, masker
+    from videovanish_tpu_torch.video import io as vio
+
+    cfg = default_config()
+    if infill._get_config() != cfg:
+        raise RuntimeError("the GUI phase runs the default config")
+    t_phase = time.perf_counter()
+    tmp = os.path.join("build", "gui_smoke")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    counts: dict = {}
+    report: dict = {"frames": [GUI_FRAMES, 720, 1280],
+                    "cursor": GUI_CURSOR}
+
+    def count(run):
+        for k, n in run["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+        return run
+
+    try:
+        T, H, W = GUI_FRAMES, 720, 1280
+        frames, masks, _ = synthetic_request(T, H, W, seed + 11)
+        masks3 = np.repeat(masks[..., None], 3, axis=-1)
+        color = os.path.join(tmp, "color.mkv")
+        mask = os.path.join(tmp, "mask.mkv")
+        vio.write_video_frames_to_path(color, list(frames), FPS, H, W)
+        vio.write_video_frames_to_path(mask, list(masks3), FPS, H, W)
+        # the annotations as the window holds them: sam2_annotations' two
+        # keyframes and a click on the rectangle at the cursor
+        store = AnnotationStore()
+        store.load_from_json_obj(sam2_annotations(H, W))
+        x0 = W // 6 + (W // 2) * GUI_CURSOR // (T - 1)
+        store.get_or_create(GUI_CURSOR).pos_clicks.append(
+            ((x0 + W // 16) / W, (H // 3 + H // 8) / H, 1))
+        ann = store.annotations_dict()
+        settings = {"max_img_size": cfg.infill.max_img_size,
+                    "mask_dilation_iter": cfg.infill.mask_dilation_iter,
+                    "keep_unmasked_original":
+                        cfg.infill.keep_unmasked_original}
+
+        # 1. cancelled jobs write nothing
+        out_mask = color + "_sam2_mask.mkv"
+        out_vanish = color + "_vanished.mkv"
+        c1 = count(on_thread(jobs.generate_mask_job(color, ann),
+                             cancel_at=45))
+        c2 = count(on_thread(jobs.make_vanish_job(color, mask, **settings),
+                             cancel_at=0))
+        if c1["result"] is not None or c2["result"] is not None or \
+                os.path.exists(out_mask) or os.path.exists(out_vanish):
+            raise RuntimeError("a cancelled job returned a result or wrote "
+                               "its file")
+        report["cancelled"] = {"generate_mask_s": c1["seconds"],
+                               "make_vanish_s": c2["seconds"],
+                               "results": None, "files": False}
+        print(f"[gui] cancelled jobs: Generate Mask after SAM2 "
+              f"{c1['seconds']:.2f} s, Make Vanish before the infill "
+              f"{c2['seconds']:.2f} s; both None, no file", flush=True)
+
+        # 2. the mask preview at the cursor
+        one = store.annotations_dict(only_frame=GUI_CURSOR,
+                                     remap_to_zero=True)
+        mp = count(on_thread(jobs.preview_mask_job(color, GUI_CURSOR, one)))
+        want = masker.run_sam2_on_frames([frames[GUI_CURSOR]], one,
+                                         device="cuda")
+        check_masks(mp["result"], 1, H, W)
+        if not np.array_equal(mp["result"][0], want[0]):
+            raise RuntimeError("the mask preview differs from "
+                               "run_sam2_on_frames on the cursor frame")
+        report["mask_preview"] = {"seconds": mp["seconds"],
+                                  "peak_gib": mp["peak_gib"],
+                                  "bitwise_direct": True,
+                                  "mask_pixels": int(want[0].any(-1).sum())}
+        print(f"[gui] mask preview at frame {GUI_CURSOR}: "
+              f"{mp['seconds']:.3f} s, peak {mp['peak_gib']:.2f} GiB, equal "
+              f"to run_sam2_on_frames on the frame ("
+              f"{report['mask_preview']['mask_pixels']} mask pixels)",
+              flush=True)
+
+        # 3. the infill preview from the cursor: cold, warm, profiled; and
+        # near the end of the file
+        model = infill.get_model("2-Step", device="cuda")
+        latents = []
+        model.latent_hook = latents.append
+        previews = {}
+        try:
+            for cursor in (GUI_CURSOR, GUI_TAIL_CURSOR):
+                n = min(jobs.INFILL_PREVIEW_FRAMES, T - cursor)
+                sl = slice(cursor, cursor + n)
+                job = jobs.preview_infill_job(color, mask, cursor, **settings)
+                latents.clear()
+                runs = [count(on_thread(job))]
+                if cursor == GUI_CURSOR:
+                    runs += [count(on_thread(job))
+                             for _ in range(GUI_WARM_RUNS)]
+                z = torch.cat(latents)
+                want = infill.run_infill_on_frames(
+                    list(frames[sl]), list(masks3[sl]), **settings,
+                    preview=True, device="cuda")
+                outside = outside_feathered_mask(masks[sl], cfg)
+                for r in runs:
+                    got = np.stack(r["result"])
+                    if got.shape != frames[sl].shape or \
+                            not np.array_equal(got, np.stack(want)):
+                        raise RuntimeError(f"the infill preview at frame "
+                                           f"{cursor} differs from "
+                                           f"run_infill_on_frames(preview="
+                                           f"True)")
+                    if not np.array_equal(got[outside], frames[sl][outside]):
+                        raise RuntimeError("the infill preview changed "
+                                           "pixels outside the feathered "
+                                           "mask")
+                if tuple(z.shape[-2:]) != (45, 80) or \
+                        not bool(torch.isfinite(z).all()):
+                    raise RuntimeError(f"preview latents {tuple(z.shape)}, "
+                                       f"expected finite 45x80")
+                diff = np.abs(np.stack(want).astype(np.int16)
+                              - frames[sl])[~outside]
+                previews[cursor] = {
+                    "frames": n, "latent_hw": list(z.shape[-2:]),
+                    "seconds": [r["seconds"] for r in runs],
+                    "peak_gib": [r["peak_gib"] for r in runs],
+                    "bitwise_direct": True,
+                    "inside_mean_abs_change": float(diff.mean()),
+                    "launches": runs[-1]["launches"]}
+                print(f"[gui] infill preview at frame {cursor}: {n} frames, "
+                      f"latents {tuple(z.shape[-2:])}, "
+                      + ("cold/warm " if len(runs) > 1 else "")
+                      + "/".join(f"{r['seconds']:.3f}" for r in runs)
+                      + " s, peak "
+                      + "/".join(f"{r['peak_gib']:.2f}" for r in runs)
+                      + " GiB; equal to run_infill_on_frames(preview=True), "
+                      "unmasked pixels equal the input", flush=True)
+            # the warm preview's stage split, under the profiler on its
+            # thread (kineto is first started here, on the main thread)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]):
+                torch.zeros(1, device="cuda").add_(1)
+            job = jobs.preview_infill_job(color, mask, GUI_CURSOR, **settings)
+            lean = count(on_thread(job, profile={}))
+            pr = count(on_thread(job, profile={"with_flops": True}))
+        finally:
+            model.latent_hook = None
+        warm_s = previews[GUI_CURSOR]["seconds"][1:]
+        split = gui_stage_split(pr["prof"], lean["prof"],
+                                jobs.INFILL_PREVIEW_FRAMES, warm_s)
+        split["profiled_seconds"] = pr["seconds"]
+        split["profiled_peak_gib"] = pr["peak_gib"]
+        split["lean_profiled_seconds"] = lean["seconds"]
+        busy = split["busy_share_of_warm_walls"]
+        preview_instances = set(previews[GUI_CURSOR]["launches"])
+        report["infill_preview"] = {str(k): v for k, v in previews.items()}
+        report["stage_split"] = split
+        print(f"[gui] warm preview's device split (utils/profiling, bf16 "
+              f"peak {split['peak_tflops']} TFLOP/s; run with_flops "
+              f"{pr['seconds']:.3f} s): "
+              + ", ".join(f"{k} {d['ms']} ms share {d['share']} mfu "
+                          f"{d['mfu']}" for k, d in split["stages"].items())
+              + f"; idle share {split['idle_share']}, unstaged "
+              f"{split['unstaged_share']}; device {split['device_ms']:.1f} "
+              f"ms; without with_flops: run {lean['seconds']:.3f} s, idle "
+              f"share {split['lean_idle_share']}, device "
+              f"{split['lean_device_ms']:.1f} ms, over the unprofiled warm "
+              f"walls " + "/".join(f"{w:.3f}" for w in warm_s)
+              + " s: busy " + "/".join(f"{b:.3f}" for b in busy)
+              + f" (median wall "
+              f"{split['busy_share_of_median_warm_wall']:.3f}); its stages "
+              f"on 4 cards "
+              f"{split['projection_4']['projected_ms']} ms against "
+              f"{split['projection_4']['measured_ms']} "
+              f"({split['projection_4']['reduction_x']}x); attention ms by "
+              f"stage {json.dumps(split['attention_ms_by_stage'])}",
+              flush=True)
+
+        # 4. Generate Mask and Make Vanish against the CLIs
+        ann_path = os.path.join(tmp, "annotations.json")
+        with open(ann_path, "w") as f:
+            json.dump(store.to_json_obj(video=color, fps=FPS), f)
+        gm = count(on_thread(jobs.generate_mask_job(color, ann)))
+        cli_mask = os.path.join(tmp, "cli_mask.mkv")
+        sam2_masker.main(["--color_video", color, "--annotations", ann_path,
+                          "--out", cli_mask])
+        mv = count(on_thread(jobs.make_vanish_job(color, mask, **settings)))
+        cli_vanish = os.path.join(tmp, "cli_vanished.mkv")
+        diffuerase.main(["--color_video", color, "--mask_video", mask,
+                         "--out", cli_vanish])
+        for name, run, path, want_path in (
+                ("Generate Mask", gm, out_mask, cli_mask),
+                ("Make Vanish", mv, out_vanish, cli_vanish)):
+            if run["result"] != path:
+                raise RuntimeError(f"{name} returned {run['result']}")
+            got, fps = vio.load_video_frames_from_path(path)
+            want, _ = vio.load_video_frames_from_path(want_path)
+            if fps != FPS or len(got) != T or \
+                    not np.array_equal(np.stack(got), np.stack(want)):
+                raise RuntimeError(f"{name}'s file differs from its CLI's")
+        check_masks(vio.load_video_frames_from_path(out_mask)[0], T, H, W)
+        report["generate_mask"] = {"seconds": gm["seconds"],
+                                   "peak_gib": gm["peak_gib"],
+                                   "bitwise_cli": True}
+        report["make_vanish"] = {"seconds": mv["seconds"],
+                                 "peak_gib": mv["peak_gib"],
+                                 "bitwise_cli": True}
+        print(f"[gui] Generate Mask {gm['seconds']:.2f} s (peak "
+              f"{gm['peak_gib']:.2f} GiB), Make Vanish {mv['seconds']:.2f} s "
+              f"(peak {mv['peak_gib']:.2f} GiB): files equal to the "
+              f"sam2_masker and diffuerase CLIs' bitwise", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = sorted(k for k in GUI_INSTANCES if not counts.get(k))
+    if missing:
+        raise RuntimeError(f"GUI-phase kernel instances not launched: "
+                           f"{missing}")
+    report["preview_instances"] = sorted(preview_instances)
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"[gui] launches {json.dumps(counts, sort_keys=True)}", flush=True)
+    print(f"[gui] phase {report['phase_s']:.1f} s", flush=True)
+    return counts, report
+
+
 # the published weight files the weights phase writes: (manifest in
 # tests/fixtures/manifests, file name, dtype); DiffuEraser's and CLIP's as
 # .safetensors, ProPainter's and SAM2's as .pth / .pt
@@ -2638,24 +3078,27 @@ def main(argv=None) -> int:
     counts_3, sam2_report = run_sam2_request(args.seed)
     report.append(sam2_report)
     counts_5, files_report = run_files_phase(launches_0, args.seed)
+    counts_g, gui_report = run_gui_phase(args.seed)
     counts_4, weights_report = run_weights_phase(args.seed)
     for row in rows:
-        # each instance is driven by the infill requests, by SAM2 or by the
-        # training step
+        # each instance is driven by the infill requests, by SAM2, by the
+        # training step or by the GUI's jobs
         row["launches"] = counts.get(row["name"], 0) + \
-            counts_3.get(row["name"], 0) + counts_t.get(row["name"], 0)
+            counts_3.get(row["name"], 0) + counts_t.get(row["name"], 0) + \
+            counts_g.get(row["name"], 0)
         row["launches_prior_request"] = counts_2.get(row["name"], 0)
         row["launches_sam2_request"] = counts_3.get(row["name"], 0)
         row["launches_weights_phase"] = counts_4.get(row["name"], 0)
         row["launches_files_phase"] = counts_5.get(row["name"], 0)
         row["launches_mesh_phase"] = counts_m.get(row["name"], 0)
+        row["launches_gui_phase"] = counts_g.get(row["name"], 0)
     for row in rows + bwd_rows:
         row["launches_train_phase"] = counts_t.get(row["name"], 0)
     for row in bwd_rows:
         # the training step is the backward kernels' main path
         row["launches"] = row["launches_train_phase"]
         for phase in ("prior_request", "sam2_request", "weights_phase",
-                      "files_phase", "mesh_phase"):
+                      "files_phase", "mesh_phase", "gui_phase"):
             row[f"launches_{phase}"] = 0
     train_missing = sorted(set(counts_t) - {r["name"] for r in bwd_rows}
                            - {r["name"] for r in rows}
@@ -2676,7 +3119,7 @@ def main(argv=None) -> int:
                            f"request: {sam2_missing}")
     unchecked = sorted((set(counts) | set(counts_2) | set(counts_3)
                         | set(counts_4) | set(counts_5) | set(counts_t)
-                        | set(counts_m))
+                        | set(counts_m) | set(counts_g))
                        - {r["name"] for r in rows})
     if unchecked:
         raise RuntimeError(f"main-path kernel instances without a "
@@ -2693,7 +3136,8 @@ def main(argv=None) -> int:
                       "mesh_phase": mesh_report,
                       "train_phase": train_report,
                       "weights_phase": weights_report,
-                      "files_phase": files_report}))
+                      "files_phase": files_report,
+                      "gui_phase": gui_report}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

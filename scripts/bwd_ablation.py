@@ -148,7 +148,8 @@ def main(argv=None) -> int:
 
         def run(name):
             fn = getattr(libs[lib][name], entry)
-            return lambda: A._run(fn, ops, dims, scale, *ts, extra=extra)
+            return lambda: A._run(fn, ops, dims, scale, *ts, extra=extra,
+                                  flops_per=10)
 
         def split(t):
             return A._split_heads(t, heads) if heads else t

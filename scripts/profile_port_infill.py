@@ -8,11 +8,15 @@ Builds the port's DiffuEraser at the default (full SD1.5) width with seeded
 random weights, runs one `run_infill_on_frames` request with the prior
 passed in (chip_smoke.py's synthetic scene), or with --computed-prior
 without it (the port's Propainter computes the prior at the published
-widths), to warm up, then runs it again under torch.profiler. Prints one
+widths), to warm up, twice timed on the host clock, once under
+torch.profiler and once more under it with_flops. Prints one
 JSON line: the request's wall time in two runs without the profiler and in
 the profiled run, the summed kernel time by kernel class (the port's two
 attention kernels, convolutions, matmuls, normalisation, gathers, the
-rest), and the share of the profiled run's wall time the card was busy.
+rest; `videovanish_tpu_torch.utils.profiling.classify`) and the share of
+the profiled run's wall time the card was busy, both from the run without
+with_flops, and the device ms, share and MFU by stage
+(`rows_from_profiler`, `aggregate_programs`) from the run with it.
 The full kernel table goes to
 build/profiles/profile_port_infill_<frames>x<height>x<width>[_prior].txt
 under the checkout (git-ignored). Needs a CUDA device.
@@ -27,25 +31,6 @@ import time
 from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-CLASSES = [  # (class, substrings of the kernel name), first match wins
-    ("flash_attn_fwd", ("flash_fwd_kernel",)),
-    ("small_seq_attn", ("small_seq_attn_kernel",)),
-    ("convolution", ("conv", "fprop", "dgrad", "implicit", "winograd")),
-    ("matmul", ("gemm", "cutlass", "nvjet", "cublas", "xmma")),
-    ("norm", ("group_norm", "GroupNorm", "layer_norm", "LayerNorm",
-              "welford", "Welford")),
-    ("softmax", ("softmax", "Softmax", "SoftMax")),
-    ("gather", ("gather", "index_select", "indexSelect", "index_elementwise",
-                "scatter")),
-]
-
-
-def classify(name: str) -> str:
-    for cls, keys in CLASSES:
-        if any(k in name for k in keys):
-            return cls
-    return "other"
 
 
 def main(argv=None) -> int:
@@ -65,6 +50,9 @@ def main(argv=None) -> int:
     from chip_smoke import card_line, synthetic_request
     from videovanish_tpu_torch.config import default_config
     from videovanish_tpu_torch.pipeline import infill
+    from videovanish_tpu_torch.utils.profiling import (
+        aggregate_programs, kernel_table, rows_from_profiler,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -91,17 +79,19 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         request()
         wall = time.perf_counter() - t0
+    # the stage split's flop counts need the ops' shapes, whose recording
+    # slows the host: a second profiled run, apart from the busy share's
+    with torch.profiler.profile(activities=acts, with_flops=True) as prof_f:
+        t0 = time.perf_counter()
+        request()
+        wall_f = time.perf_counter() - t0
 
+    # the kernels alone: the device-side copies of the stage and flop
+    # ranges are not device work
+    rows = kernel_table(rows_from_profiler(prof))
     by_class = defaultdict(float)
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        by_class[classify(evt.key)] += us / 1e3
-        rows.append((us / 1e3, evt.count, evt.key))
+    for ms, _, cls, _ in rows:
+        by_class[cls] += ms
     busy_ms = sum(by_class.values())
     out_dir = os.path.join(ROOT, "build", "profiles")
     os.makedirs(out_dir, exist_ok=True)
@@ -110,8 +100,8 @@ def main(argv=None) -> int:
     with open(os.path.join(out_dir, name), "w") as f:
         f.write(f"{card_line()}\n{args.frames}x{args.height}x{args.width}, "
                 f"wall {wall * 1e3:.3f} ms\n")
-        for ms, count, key in sorted(rows, reverse=True):
-            f.write(f"{ms:12.3f} ms {count:7d}  {classify(key):15s} {key}\n")
+        for ms, count, cls, key in rows:
+            f.write(f"{ms:12.3f} ms {count:7d}  {cls:15s} {key}\n")
     print(json.dumps({
         "card": card_line(),
         "request": [args.frames, args.height, args.width],
@@ -122,6 +112,10 @@ def main(argv=None) -> int:
         "busy_share": busy_ms / (wall * 1e3) if busy_ms else "not measured",
         "device_ms_by_class": dict(sorted(by_class.items(),
                                           key=lambda kv: -kv[1])),
+        # device ms, share and MFU by stage (utils/profiling), from the
+        # run under with_flops
+        "wall_ms_with_flops": wall_f * 1e3,
+        "stage_split": aggregate_programs(rows_from_profiler(prof_f)),
     }))
     return 0
 

@@ -8,10 +8,14 @@ Builds the port's SAM2 predictor at the default Sam2Config (Hiera-L at
 1024x1024) with seeded random weights, runs chip_smoke.py's SAM2 request
 (`run_sam2_on_frames` on its synthetic scene, two objects: a click and a
 box on frame 0, a negative click on frame 8) once to warm up, twice timed
-on the host clock, and once under torch.profiler. Prints one JSON line:
-the wall times, the summed kernel time by kernel class (the classes of
-scripts/profile_port_infill.py), and the share of the profiled run's wall
-time the card was busy. The full kernel table goes to
+on the host clock, once under torch.profiler and once more under it
+with_flops. Prints one JSON line: the wall times, the summed kernel time
+by kernel class (`videovanish_tpu_torch.utils.profiling.classify`) and
+the share of the profiled run's wall time the card was busy, both from
+the run without with_flops, and the device ms, share and MFU by stage
+(`rows_from_profiler`, `aggregate_programs`) from the run with it. The
+full
+kernel table goes to
 build/profiles/profile_port_sam2_<frames>x<height>x<width>.txt under the
 checkout (git-ignored). Needs a CUDA device.
 """
@@ -38,10 +42,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_port_sam2: no CUDA device", file=sys.stderr)
         return 2
-    sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
+    sys.path.insert(0, ROOT)
     from chip_smoke import card_line, sam2_annotations, synthetic_request
-    from profile_port_infill import classify
     from videovanish_tpu_torch.pipeline import masker
+    from videovanish_tpu_torch.utils.profiling import (
+        aggregate_programs, kernel_table, rows_from_profiler,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -66,17 +72,19 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         request()
         wall = time.perf_counter() - t0
+    # the stage split's flop counts need the ops' shapes, whose recording
+    # slows the host: a second profiled run, apart from the busy share's
+    with torch.profiler.profile(activities=acts, with_flops=True) as prof_f:
+        t0 = time.perf_counter()
+        request()
+        wall_f = time.perf_counter() - t0
 
+    # the kernels alone: the device-side copies of the stage and flop
+    # ranges are not device work
+    rows = kernel_table(rows_from_profiler(prof))
     by_class = defaultdict(float)
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        by_class[classify(evt.key)] += us / 1e3
-        rows.append((us / 1e3, evt.count, evt.key))
+    for ms, _, cls, _ in rows:
+        by_class[cls] += ms
     busy_ms = sum(by_class.values())
     out_dir = os.path.join(ROOT, "build", "profiles")
     os.makedirs(out_dir, exist_ok=True)
@@ -84,8 +92,8 @@ def main(argv=None) -> int:
               "w") as f:
         f.write(f"{card_line()}\n{T}x{H}x{W}, 2 objects, wall "
                 f"{wall * 1e3:.3f} ms\n")
-        for ms, count, key in sorted(rows, reverse=True):
-            f.write(f"{ms:12.3f} ms {count:7d}  {classify(key):15s} {key}\n")
+        for ms, count, cls, key in rows:
+            f.write(f"{ms:12.3f} ms {count:7d}  {cls:15s} {key}\n")
     print(json.dumps({
         "card": card_line(),
         "request": [T, H, W],
@@ -96,8 +104,12 @@ def main(argv=None) -> int:
         "busy_share": busy_ms / (wall * 1e3) if busy_ms else "not measured",
         "device_ms_by_class": dict(sorted(by_class.items(),
                                           key=lambda kv: -kv[1])),
+        # device ms, share and MFU by stage (utils/profiling), from the
+        # run under with_flops
+        "wall_ms_with_flops": wall_f * 1e3,
+        "stage_split": aggregate_programs(rows_from_profiler(prof_f)),
         "top_kernels": [{"ms": ms, "count": n, "name": key[:120]}
-                        for ms, n, key in sorted(rows, reverse=True)[:15]],
+                        for ms, n, _, key in rows[:15]],
     }))
     return 0
 

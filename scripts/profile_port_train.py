@@ -7,12 +7,16 @@ port.
 Builds chip_smoke's training phase (the default config's UNet with motion
 modules and BrushNet at full width, seeded; one clip of TRAIN_CLIP
 latents, 1 x 22 x 40 x 40), runs one warm-up step of `make_train_step`
-with remat, two steps timed on the host clock and one under
-torch.profiler. Prints one JSON line: the card, the steps' wall times, the
+with remat, two steps timed on the host clock, one under torch.profiler
+and one more under it with_flops. Prints one JSON line: the card, the
+steps' wall times, the
 summed kernel time by kernel class (the attention kernels forward and
 backward, convolutions, matmuls, normalisation, AdamW, the rest:
-elementwise, casts, layout) and the share of the profiled step's wall
-time the card was busy, and the attention kernels' launches per step.
+elementwise, casts, layout; `videovanish_tpu_torch.utils.profiling
+.classify`), the share of the profiled step's wall time the card was busy
+and the attention kernels' launches per step, from the step without
+with_flops, and the device ms, share and MFU by stage
+(`rows_from_profiler`, `aggregate_programs`) from the step with it.
 `--csrc DIR` builds the attention kernels from another copy of
 `ops/csrc/` (an earlier version unpacked into the git-ignored `build/`),
 so two versions can be profiled in one call. The full kernel table goes
@@ -31,26 +35,6 @@ from pathlib import Path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-CLASSES = [  # (class, substrings of the kernel name), first match wins
-    ("flash_attn_fwd", ("flash_fwd_kernel",)),
-    ("flash_attn_bwd", ("flash_bwd_",)),
-    ("small_seq_attn", ("small_seq_attn_kernel",)),
-    ("small_seq_attn_bwd", ("small_seq_bwd_kernel",)),
-    ("adamw", ("adam", "Adam", "multi_tensor_apply")),
-    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit",
-                     "winograd")),
-    ("matmul", ("gemm", "cutlass", "nvjet", "cublas", "xmma")),
-    ("norm", ("group_norm", "GroupNorm", "layer_norm", "LayerNorm",
-              "welford", "Welford")),
-]
-
-
-def classify(name: str) -> str:
-    for cls, keys in CLASSES:
-        if any(k in name for k in keys):
-            return cls
-    return "other"
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -68,6 +52,9 @@ def main(argv=None) -> int:
     from videovanish_tpu_torch.ops import attention as A
     from videovanish_tpu_torch.ops import kernels
     from videovanish_tpu_torch.train import make_train_step
+    from videovanish_tpu_torch.utils.profiling import (
+        aggregate_programs, kernel_table, rows_from_profiler,
+    )
 
     if args.csrc is not None:
         kernels.CSRC = args.csrc.resolve()
@@ -98,17 +85,19 @@ def main(argv=None) -> int:
         step()
         wall = time.perf_counter() - t0
     launches = dict(A.LAUNCHES)
+    # the stage split's flop counts need the ops' shapes, whose recording
+    # slows the host: a second profiled run, apart from the busy share's
+    with torch.profiler.profile(activities=acts, with_flops=True) as prof_f:
+        t0 = time.perf_counter()
+        step()
+        wall_f = time.perf_counter() - t0
 
+    # the kernels alone: the device-side copies of the stage and flop
+    # ranges are not device work
+    rows = kernel_table(rows_from_profiler(prof))
     by_class = defaultdict(float)
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        by_class[classify(evt.key)] += us / 1e3
-        rows.append((us / 1e3, evt.count, evt.key))
+    for ms, _, cls, _ in rows:
+        by_class[cls] += ms
     busy_ms = sum(by_class.values())
     out_dir = os.path.join(ROOT, "build", "profiles")
     os.makedirs(out_dir, exist_ok=True)
@@ -117,8 +106,8 @@ def main(argv=None) -> int:
               "w") as f:
         f.write(f"{card_line()}\nclip {TRAIN_CLIP}, kernels from "
                 f"{kernels.CSRC}, wall {wall * 1e3:.3f} ms\n")
-        for ms, count, key in sorted(rows, reverse=True):
-            f.write(f"{ms:12.3f} ms {count:7d}  {classify(key):18s} {key}\n")
+        for ms, count, cls, key in rows:
+            f.write(f"{ms:12.3f} ms {count:7d}  {cls:18s} {key}\n")
     print(json.dumps({
         "card": card_line(),
         "clip_B_T_h_w": list(TRAIN_CLIP),
@@ -129,6 +118,10 @@ def main(argv=None) -> int:
         "busy_share": busy_ms / (wall * 1e3) if busy_ms else "not measured",
         "device_ms_by_class": dict(sorted(by_class.items(),
                                           key=lambda kv: -kv[1])),
+        # device ms, share and MFU by stage (utils/profiling), from the
+        # run under with_flops
+        "wall_ms_with_flops": wall_f * 1e3,
+        "stage_split": aggregate_programs(rows_from_profiler(prof_f)),
         "attention_launches_per_step": launches,
     }))
     return 0

@@ -72,22 +72,22 @@ def test_flash_matches_plain(gen):
 # the flash kernel's tile edges: 64 query rows per consumer warpgroup, 192
 # per CTA at D = 40, 128 at D = 80/160, 64 at D = 512; key tiles of 128
 # (D <= 80) or 64 (D = 160, 512)
-@pytest.mark.parametrize("D", [40, 160, 512])
-def test_flash_query_tile_edges(gen, D):
-    B, H, Sk = (2, 3, 90) if D < 512 else (1, 1, 90)
-    _each([(Sq,) for Sq in (1, 63, 64, 65, 127, 128, 129, 191, 192, 193)],
-          lambda Sq: _flash_check(_randn(gen, B, H, Sq, D),
-                                  _randn(gen, B, H, Sk, D),
-                                  _randn(gen, B, H, Sk, D)))
+def test_flash_query_tile_edges(gen):
+    def check(D, Sq):
+        B, H, Sk = (2, 3, 90) if D < 512 else (1, 1, 90)
+        _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                     _randn(gen, B, H, Sk, D))
+    _each([(D, Sq) for D in (40, 160, 512)
+           for Sq in (1, 63, 64, 65, 127, 128, 129, 191, 192, 193)], check)
 
 
-@pytest.mark.parametrize("D", [40, 80, 512])
-def test_flash_key_tile_edges(gen, D):
-    B, H, Sq = (1, 2, 150) if D < 512 else (1, 1, 70)
-    _each([(Sk,) for Sk in (1, 2, 63, 64, 65, 100, 127, 128, 129, 257)],
-          lambda Sk: _flash_check(_randn(gen, B, H, Sq, D),
-                                  _randn(gen, B, H, Sk, D),
-                                  _randn(gen, B, H, Sk, D)))
+def test_flash_key_tile_edges(gen):
+    def check(D, Sk):
+        B, H, Sq = (1, 2, 150) if D < 512 else (1, 1, 70)
+        _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                     _randn(gen, B, H, Sk, D))
+    _each([(D, Sk) for D in (40, 80, 512)
+           for Sk in (1, 2, 63, 64, 65, 100, 127, 128, 129, 257)], check)
 
 
 def test_flash_last_head_of_token_major_storage(gen):
@@ -103,30 +103,31 @@ def test_flash_last_head_of_token_major_storage(gen):
     _each([(D,) for D in (40, 72, 80, 152, 160, 504, 512)], check)
 
 
-@pytest.mark.parametrize("D", [40, 160, 512])
-def test_flash_rows_far_below_the_rest(gen, D):
+def test_flash_rows_far_below_the_rest(gen):
     """Rows whose scores all lie far below those of other rows (and one row
     far above): the per-row max keeps every exponent near 0, so the sums
     stay finite and nonzero."""
-    B, H, Sq, Sk = 1, 2, 140, 300
-    u = torch.ones(D, device="cuda", dtype=torch.bfloat16)
-    k = _randn(gen, B, H, Sk, D) + 4 * u
-    q = _randn(gen, B, H, Sq, D)
-    q[:, :, :5] -= 6 * u
-    q[:, :, 7] += 6 * u
-    _flash_check(q, k, _randn(gen, B, H, Sk, D))
+    def check(D):
+        B, H, Sq, Sk = 1, 2, 140, 300
+        u = torch.ones(D, device="cuda", dtype=torch.bfloat16)
+        k = _randn(gen, B, H, Sk, D) + 4 * u
+        q = _randn(gen, B, H, Sq, D)
+        q[:, :, :5] -= 6 * u
+        q[:, :, 7] += 6 * u
+        _flash_check(q, k, _randn(gen, B, H, Sk, D))
+    _each([(D,) for D in (40, 160, 512)], check)
 
 
-@pytest.mark.parametrize("B,H,Sq,Sk,D", [
-    (5, 3, 22, 22, 40), (7, 2, 17, 30, 48), (3, 4, 64, 64, 160),
-    (9, 1, 33, 1, 80), (4, 2, 1, 64, 48), (2, 8, 64, 17, 152),
-])
-def test_small_seq_matches_plain(gen, B, H, Sq, Sk, D):
-    q, k, v = (_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
-               _randn(gen, B, H, Sk, D))
-    got = A.small_seq_attention(q, k, v, D ** -0.5)
-    _close(got, A.small_seq_attention_ref(q.float(), k.float(), v.float(),
-                                          D ** -0.5))
+def test_small_seq_matches_plain(gen):
+    def check(B, H, Sq, Sk, D):
+        q, k, v = (_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                   _randn(gen, B, H, Sk, D))
+        got = A.small_seq_attention(q, k, v, D ** -0.5)
+        _close(got, A.small_seq_attention_ref(q.float(), k.float(),
+                                              v.float(), D ** -0.5))
+    _each([(5, 3, 22, 22, 40), (7, 2, 17, 30, 48), (3, 4, 64, 64, 160),
+           (9, 1, 33, 1, 80), (4, 2, 1, 64, 48), (2, 8, 64, 17, 152)],
+          check)
 
 
 @pytest.mark.parametrize("N,S,heads,d", [(40, 22, 8, 40), (10, 64, 2, 72)])
@@ -174,20 +175,19 @@ def test_small_seq_length_edges(gen, D):
 # units are one sequence times up to 8 heads; one persistent CTA per SM:
 # sequence counts below the CTA count, a count that leaves the last CTA
 # short, and head counts that do not fill a unit
-@pytest.mark.parametrize("N,heads,d", [
-    (1, 8, 40), (3, 8, 160), (135, 8, 160), (135, 8, 40), (7, 3, 40),
-    (5, 1, 80), (301, 5, 72),
-])
-def test_small_seq_tokenmajor_counts(gen, N, heads, d):
-    S = 22
-    q, k, v = (_randn(gen, N, S, heads * d) for _ in range(3))
-    n = sum(A.LAUNCHES.values())
-    got = A.small_seq_attention_tokenmajor(q, k, v, heads, d ** -0.5)
-    assert sum(A.LAUNCHES.values()) == n + 1
-    ref = A.small_seq_attention_ref(_split(q, heads).float(),
-                                    _split(k, heads).float(),
-                                    _split(v, heads).float(), d ** -0.5)
-    _close(_split(got, heads), ref)
+def test_small_seq_tokenmajor_counts(gen):
+    def check(N, heads, d):
+        S = 22
+        q, k, v = (_randn(gen, N, S, heads * d) for _ in range(3))
+        n = sum(A.LAUNCHES.values())
+        got = A.small_seq_attention_tokenmajor(q, k, v, heads, d ** -0.5)
+        assert sum(A.LAUNCHES.values()) == n + 1
+        ref = A.small_seq_attention_ref(_split(q, heads).float(),
+                                        _split(k, heads).float(),
+                                        _split(v, heads).float(), d ** -0.5)
+        _close(_split(got, heads), ref)
+    _each([(1, 8, 40), (3, 8, 160), (135, 8, 160), (135, 8, 40), (7, 3, 40),
+           (5, 1, 80), (301, 5, 72)], check)
 
 
 @pytest.mark.parametrize("S", [22, 64])
@@ -228,18 +228,18 @@ def test_small_seq_head_dims_and_layouts(gen, layout):
     _each([(D,) for D in (40, 72, 80, 152, 160)], check)
 
 
-@pytest.mark.parametrize("D", [40, 160])
-@pytest.mark.parametrize("S", [22, 64])
-def test_small_seq_rows_far_below_the_rest(gen, D, S):
+def test_small_seq_rows_far_below_the_rest(gen):
     """Rows whose scores all lie far below those of other rows (and one row
     far above): the per-row max keeps every exponent near 0."""
-    B, H = 9, 8
-    u = torch.ones(D, device="cuda", dtype=torch.bfloat16)
-    k = _randn(gen, B, H, S, D) + 4 * u
-    q = _randn(gen, B, H, S, D)
-    q[:, :, :5] -= 6 * u
-    q[:, :, 7] += 6 * u
-    _small_check(q, k, _randn(gen, B, H, S, D))
+    def check(S, D):
+        B, H = 9, 8
+        u = torch.ones(D, device="cuda", dtype=torch.bfloat16)
+        k = _randn(gen, B, H, S, D) + 4 * u
+        q = _randn(gen, B, H, S, D)
+        q[:, :, :5] -= 6 * u
+        q[:, :, 7] += 6 * u
+        _small_check(q, k, _randn(gen, B, H, S, D))
+    _each([(S, D) for S in (22, 64) for D in (40, 160)], check)
 
 
 @pytest.mark.parametrize("N,S,d", [(2040, 22, 80), (22, 64, 160)])
@@ -312,25 +312,26 @@ def test_flash_sam2_last_head_of_wider_storage(gen):
     _each([(16,), (256,)], check)
 
 
-@pytest.mark.parametrize("B,H,Sq,Sk,D", [
-    (2, 8, 22, 4096, 16), (2, 1, 4096, 4096, 256), (16, 16, 64, 256, 72),
-])
-def test_flash_sam2_is_deterministic(gen, B, H, Sq, Sk, D):
-    q, k, v = (_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
-               _randn(gen, B, H, Sk, D))
-    a = A.flash_attention(q, k, v, D ** -0.5)
-    b = A.flash_attention(q, k, v, D ** -0.5)
-    assert torch.equal(a, b)
+def test_flash_sam2_is_deterministic(gen):
+    def check(B, H, Sq, Sk, D):
+        q, k, v = (_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
+                   _randn(gen, B, H, Sk, D))
+        a = A.flash_attention(q, k, v, D ** -0.5)
+        b = A.flash_attention(q, k, v, D ** -0.5)
+        assert torch.equal(a, b)
+    _each([(2, 8, 22, 4096, 16), (2, 1, 4096, 4096, 256),
+           (16, 16, 64, 256, 72)], check)
 
 
-@pytest.mark.parametrize("B", [1, 16, 128])
-def test_flash_d72_hiera_stage4_entry(gen, B):
+def test_flash_d72_hiera_stage4_entry(gen):
     """Hiera's stage-4 entry: 64 pooled queries over a 16x16 window of 256
     keys, 16 heads of 72 (padded to 80)."""
-    H, Sq, Sk, D = 16, 64, 256, 72
-    _flash_check(_randn(gen, B, Sq, H, D).permute(0, 2, 1, 3),
-                 _randn(gen, B, Sk, H, D).permute(0, 2, 1, 3),
-                 _randn(gen, B, Sk, H, D).permute(0, 2, 1, 3))
+    def check(B):
+        H, Sq, Sk, D = 16, 64, 256, 72
+        _flash_check(_randn(gen, B, Sq, H, D).permute(0, 2, 1, 3),
+                     _randn(gen, B, Sk, H, D).permute(0, 2, 1, 3),
+                     _randn(gen, B, Sk, H, D).permute(0, 2, 1, 3))
+    _each([(1,), (16,), (128,)], check)
 
 
 @pytest.mark.parametrize("N", [16, 1024])

@@ -4,8 +4,9 @@ safetensors, regex and transformers packages (the port keeps its own
 .safetensors reader and pre-tokenizer), checked on the source with `ast`.
 cv2, the JAX package's codec, is imported by the port's video files module
 alone, and only inside its functions: importing the pipelines leaves it
-unloaded, so the compute path needs torch alone. chip_smoke.py refuses to
-run without a CUDA device."""
+unloaded, so the compute path needs torch alone. PySide6 is imported by the
+GUI's window modules alone. chip_smoke.py refuses to run without a CUDA
+device."""
 import ast
 import os
 import subprocess
@@ -19,6 +20,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "videovanish_tpu", "safetensors",
              "regex", "transformers")
 CODEC = "cv2"
 CODEC_MODULE = "videovanish_tpu_torch/video/io.py"
+# the window's modules alone import Qt; these run without PySide6
+QT = "PySide6"
+QT_MODULES = {f"videovanish_tpu_torch/gui/{m}.py" for m in (
+    "app", "dock", "main_window", "player", "view", "worker")}
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  (ROOT / "videovanish_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py", "scripts/profile_port_infill.py",
@@ -70,11 +75,13 @@ def test_port_imports_no_jax(rel):
             f"{rel} imports {CODEC} at module level"
     else:
         assert CODEC not in _top(_imported(tree)), f"{rel} imports {CODEC}"
+    if rel not in QT_MODULES:
+        assert QT not in _top(_imported(tree)), f"{rel} imports {QT}"
 
 
 def test_pipelines_load_without_the_codec():
-    """Importing the pipelines, the chunked pipeline and the CLIs leaves cv2
-    out of sys.modules."""
+    """Importing the pipelines, the chunked pipeline, the CLIs, the GUI's
+    jobs and the profiling module leaves cv2 out of sys.modules."""
     script = (
         "import sys\n"
         "import videovanish_tpu_torch.pipeline.infill\n"
@@ -83,6 +90,9 @@ def test_pipelines_load_without_the_codec():
         "import videovanish_tpu_torch.cli.diffuerase\n"
         "import videovanish_tpu_torch.cli.sam2_masker\n"
         "import videovanish_tpu_torch.cli.compare\n"
+        "import videovanish_tpu_torch.cli.videovanish\n"
+        "import videovanish_tpu_torch.gui.jobs\n"
+        "import videovanish_tpu_torch.utils.profiling\n"
         "print('cv2' in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,

@@ -149,6 +149,15 @@ def _run_jax(params, frames, masks, prior, forward_args=None, call=None,
         jinfill.set_config(j_tiny())
 
 
+def _jax_noise(idx, shape):
+    """The JAX package's noise for frames `idx` at a latent shape other
+    than the scene's (a preview's)."""
+    key = jax.random.PRNGKey(0)
+    return np.array(jax.vmap(lambda i: jax.random.normal(
+        jax.random.fold_in(key, i), tuple(shape), jnp.float32))(
+        jnp.asarray(list(idx))))
+
+
 def _run_port(params, noise, frames, masks, prior, forward_args=None,
               call=None, latent_hook=None, **flags):
     dcfg = DiffuEraserConfig(**{**GEOMETRY, **flags})
@@ -156,7 +165,9 @@ def _run_port(params, noise, frames, masks, prior, forward_args=None,
                                 propainter=ProPainterConfig(**PCFG)))
     model = DiffuEraser(
         config=dcfg, params=params, device="cpu",
-        noise=lambda idx, shape: torch.from_numpy(noise[list(idx)]))
+        noise=lambda idx, shape: torch.from_numpy(
+            noise[list(idx)] if tuple(shape) == noise.shape[1:]
+            else _jax_noise(idx, shape)))
     model.latent_hook = latent_hook
     pinfill.video_inpainting_sd = _with_forward_args(model, forward_args)
     pinfill.last_ckpt = "2-Step"
@@ -232,8 +243,12 @@ def test_guidance_prompt_and_full_frame_paths_match_jax(shared_one_level):
     2.0, a prompt embedding in place of the null one, both together, no
     prior at all (prior_frames=None: the masked input's latents seed the
     holes) (into DiffuEraser.forward, which run_infill_on_frames calls
-    with none of these), and keep_unmasked_original=False (the whole
-    decoded frame comes back)."""
+    with none of these), keep_unmasked_original=False (the whole decoded
+    frame comes back), and the GUI's preview (preview=True with
+    preview_img_size lowered to 40: the 64x64 frames run at 40x40, 5x5
+    latents, an odd side; 8 frames in two windows, clear of the JAX
+    package's decode clamp). Held to assert_matches_jax's bounds: uint8
+    equal outside the feathered mask, PSNR above 45 dB inside."""
     prompt = (np.random.default_rng(21).standard_normal((77, 64)) * 0.1) \
         .astype(np.float32)
     for forward_args in ({"guidance_scale": 2.0}, {"prompt_embeds": prompt},
@@ -244,6 +259,8 @@ def test_guidance_prompt_and_full_frame_paths_match_jax(shared_one_level):
     check_pipeline_matches_jax(shared_one_level,
                                call={"keep_unmasked_original": False},
                                **ONE_LEVEL)
+    check_pipeline_matches_jax(shared_one_level, call={"preview": True},
+                               preview_img_size=40, **ONE_LEVEL)
 
 
 def test_latent_carry_matches_single_pass_and_jax(shared_one_level):

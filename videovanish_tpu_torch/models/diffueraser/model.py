@@ -66,7 +66,7 @@ from videovanish_tpu_torch.ops.resize import (
     resize_nearest_2d,
 )
 from videovanish_tpu_torch.utils.observability import (
-    record_sharding, record_stage, stage_timer,
+    record_sharding, record_stage, stage_timer, trace_annotation,
 )
 
 # (global frame indices, (h8, w8, C)) -> (T, h8, w8, C) noise
@@ -451,7 +451,8 @@ class DiffuEraser:
                 z_c = acc[i:i + nb] / wsum[i:i + nb]
                 if self.latent_hook is not None:
                     self.latent_hook(z_c)
-                u8 = run_sharded(self.mesh, self._decode, z_c)
+                with trace_annotation("dn.decode"):
+                    u8 = run_sharded(self.mesh, self._decode, z_c)
                 end = min(i + nb, T_out)
                 start = decoded_upto
                 if roi is None:
@@ -474,12 +475,13 @@ class DiffuEraser:
             # (run_sharded runs it whole on every rank otherwise)
             ring = n_data > 1 and L % n_data == 0
             self.window_split["sharded" if ring else "whole"] += 1
-            z = run_sharded(self.mesh, functools.partial(
-                self._denoise_window, prompt_emb=prompt_emb,
-                guidance=float(guidance_scale or 0.0),
-                shard=self.shard if ring else None, t_frames=L),
-                prior_lat[s:s + L], masked_lat[s:s + L], m_lat[s:s + L],
-                noise[s:s + L])
+            with trace_annotation("dn.window"):
+                z = run_sharded(self.mesh, functools.partial(
+                    self._denoise_window, prompt_emb=prompt_emb,
+                    guidance=float(guidance_scale or 0.0),
+                    shard=self.shard if ring else None, t_frames=L),
+                    prior_lat[s:s + L], masked_lat[s:s + L], m_lat[s:s + L],
+                    noise[s:s + L])
             bw = window_blend_weights(
                 L, min(cfg.clip_overlap, L - 1) if L > 1 else 0,
                 # with a latent carry the first edge ramps up from the

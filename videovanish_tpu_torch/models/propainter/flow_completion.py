@@ -29,6 +29,7 @@ from videovanish_tpu_torch.models.propainter.deform import (
     SecondOrderDeformableAlignment,
 )
 from videovanish_tpu_torch.ops.resize import resize_bilinear_align_corners
+from videovanish_tpu_torch.utils.observability import trace_annotation
 
 
 def lrelu(x, slope: float = 0.2):
@@ -168,7 +169,8 @@ class RecurrentFlowCompleteNet(nn.Module):
         if sharded:
             e1, mid = e1[a - lo:b - lo], mid[a - lo:b - lo]
             mid = gather_blocks(mesh, mid, T)
-        feat = self.feat_prop_module(mid)                # (T, C, h, w)
+        with trace_annotation("pp.flow_recurrence"):  # whole on every rank
+            feat = self.feat_prop_module(mid)            # (T, C, h, w)
         d2 = self.decoder2(feat[a:b]) + e1
         flow = self.upsample(self.decoder1(d2)).float()
         return gather_blocks(mesh, flow, T) if sharded else flow

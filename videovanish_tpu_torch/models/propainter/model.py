@@ -64,7 +64,9 @@ from videovanish_tpu_torch.ops.morphology import binary_dilation
 from videovanish_tpu_torch.ops.resize import (
     host_resize_bilinear_u8, host_resize_nearest_2d, plan_long_side,
 )
-from videovanish_tpu_torch.utils.observability import record_sharding
+from videovanish_tpu_torch.utils.observability import (
+    record_sharding, trace_annotation,
+)
 
 _CONVS = (nn.Conv2d, nn.Conv3d, nn.Linear)
 
@@ -179,16 +181,21 @@ class Propainter:
         def raft(a, b):
             record_sharding("propainter_stage1", frames=a)
             return self.raft(a, b)
-        fl_f = run_sharded(self.mesh, raft, imgs[:-1], imgs[1:], even=False)
-        fl_b = run_sharded(self.mesh, raft, imgs[1:], imgs[:-1], even=False)
+        with trace_annotation("pp.raft"):
+            fl_f = run_sharded(self.mesh, raft, imgs[:-1], imgs[1:],
+                               even=False)
+            fl_b = run_sharded(self.mesh, raft, imgs[1:], imgs[:-1],
+                               even=False)
         self._stage("raft", fl_f, fl_b)
-        comp_f, comp_b = self.flow_comp.forward_bidirect_flow(
-            fl_f, fl_b, masks1, self.mesh)
+        with trace_annotation("pp.flow_completion"):
+            comp_f, comp_b = self.flow_comp.forward_bidirect_flow(
+                fl_f, fl_b, masks1, self.mesh)
         self._stage("flow_completion", comp_f, comp_b)
-        masked = imgs.float() * (1.0 - masks1)
-        prop, upd_masks = image_propagation(masked, masks1, comp_f, comp_b,
-                                            "nearest")
-        updated = (imgs.float() * (1.0 - masks1) + prop * masks1).to(dt)
+        with trace_annotation("pp.propagation"):
+            masked = imgs.float() * (1.0 - masks1)
+            prop, upd_masks = image_propagation(masked, masks1, comp_f,
+                                                comp_b, "nearest")
+            updated = (imgs.float() * (1.0 - masks1) + prop * masks1).to(dt)
         self._stage("propagation", updated, upd_masks)
         return frames01, masks1, updated, upd_masks, comp_f, comp_b
 
@@ -232,7 +239,8 @@ class Propainter:
         frames01, masks1 = stage1[:2]
         T = fr.shape[0]
         NL, plan = window_plan(T, neighbor_length, ref_stride)
-        preds = self._windows(stage1, NL, plan)
+        with trace_annotation("pp.generator"):
+            preds = self._windows(stage1, NL, plan)
         acc = torch.zeros_like(frames01)
         wsum = torch.zeros(T, 1, 1, 1, device=fr.device)
         for (s, _), pred in zip(plan, preds):

@@ -165,12 +165,14 @@ def _bhsd_dims(q, k, v, out):
     return B, H, Sq, Sk, D
 
 
-def _run(fn, ops, dims, scale, *ts, extra=()) -> None:
+def _run(fn, ops, dims, scale, *ts, extra=(), flops_per: int) -> None:
     """Launch `fn` on the current stream of the tensors `ts`' card, with its
     operands given as `_operand` tuples (q, k, v and out; the backward's
     q, k, v, out, dout, dq, dk, dv), the pointers `extra` after them (the
     C functions take them in that order), dims (B, H, Sq, Sk, D), and
-    scale * log2(e)."""
+    scale * log2(e). `flops_per`: the launch's operations per B H Sq Sk D
+    (a forward's two products 4, a backward's five 10), named for
+    utils/profiling's MFU in a `vv.flops=` range while a profiler runs."""
     dev = ts[0].get_device()
     if any(t.get_device() != dev for t in ts):
         raise ValueError("q, k, v must lie on one device")
@@ -185,8 +187,14 @@ def _run(fn, ops, dims, scale, *ts, extra=()) -> None:
     strides = (ctypes.c_longlong * (3 * len(ops)))(
         *(s for op in ops for s in op[1:]))
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    rc = fn(*(op[0] for op in ops), *extra, B, H, Sq, Sk, D, strides,
+    args = (*(op[0] for op in ops), *extra, B, H, Sq, Sk, D, strides,
             float(scale) * _LOG2E, stream)
+    if torch.autograd.profiler._is_profiler_enabled:
+        flops = flops_per * B * H * Sq * Sk * D
+        with torch.profiler.record_function(f"vv.flops={flops}"):
+            rc = fn(*args)
+    else:
+        rc = fn(*args)
     if rc != 0:  # a cudaError_t, or 1000 + the CUresult of a tensor map
         raise RuntimeError(f"{fn.__name__} failed: error {rc}")
 
@@ -197,7 +205,8 @@ def _launch(fn, q, k, v, out, scale, extra=()) -> None:
     pointer (None for none)."""
     ops = [_operand(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"),
                                        (out, "out"))]
-    _run(fn, ops, _bhsd_dims(q, k, v, out), scale, q, k, v, out, extra=extra)
+    _run(fn, ops, _bhsd_dims(q, k, v, out), scale, q, k, v, out, extra=extra,
+         flops_per=4)
 
 
 def _bhsd_out(q):
@@ -289,7 +298,7 @@ def flash_attention_backward(q, k, v, out, dout, lse, scale):
                          "log-sum-exp")
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _run(kernels.library("flash_attn_bwd").vv_flash_attn_bwd, ops, dims,
-         scale, *ts, extra=(lse.data_ptr(), delta.data_ptr()))
+         scale, *ts, extra=(lse.data_ptr(), delta.data_ptr()), flops_per=10)
     LAUNCHES[f"flash_attn_bwd[D={D},Sq={Sq},Sk={Sk}]"] += 1
     return tuple(grads)
 
@@ -348,7 +357,7 @@ def _small_seq(q, k, v, out, scale, layout: str, heads: int = 0):
         raise ValueError(f"small_seq_attn does not take D={D}, Sq={Sq}, "
                          f"Sk={Sk}")
     _run(kernels.library("small_seq_attn").vv_small_seq_attn, ops, dims,
-         scale, q, k, v, out)
+         scale, q, k, v, out, flops_per=4)
     LAUNCHES[f"small_seq_attn[{layout},N={B},D={D},S={Sq}]"] += 1
     return out
 
@@ -411,7 +420,7 @@ def small_seq_attention_backward(q, k, v, out, dout, scale, heads: int = 0):
     ops = [_operand(t, n, heads) for t, n in zip(
         ts, ("q", "k", "v", "out", "dout", "dq", "dk", "dv"))]
     _run(kernels.library("small_seq_attn_bwd").vv_small_seq_attn_bwd, ops,
-         dims, scale, *ts)
+         dims, scale, *ts, flops_per=10)
     LAUNCHES[f"small_seq_attn_bwd[{layout},N={B},D={D},S={Sq}]"] += 1
     return tuple(grads)
 

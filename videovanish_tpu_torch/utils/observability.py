@@ -8,7 +8,8 @@ videovanish_tpu/utils/observability.py).
 - `maybe_profile`: with VV_PROFILE_DIR set, a torch.profiler trace (CPU
   and, where there is a card, CUDA activity) of the region, written there
   as a Chrome trace.
-- `trace_annotation`: a named range in that trace.
+- `trace_annotation`: a range in that trace named STAGE_RANGE + the
+  stage, which `utils/profiling.rows_from_profiler` reads as a stage.
 - `trace_shardings` / `record_sharding`: with a sink installed, what each
   program (vae_encode, vae_decode, denoise_window, propainter_stage1,
   propainter_window) receives on this rank: per tensor ("data",) where it
@@ -115,10 +116,13 @@ def stage_timer(stage: str, **fields):
     record_stage(stage, time.perf_counter() - t0, **fields)
 
 
+STAGE_RANGE = "vv.stage="
+
+
 @contextlib.contextmanager
 def trace_annotation(name: str):
     import torch
-    with torch.profiler.record_function(name):
+    with torch.profiler.record_function(STAGE_RANGE + name):
         yield
 
 
