@@ -1,0 +1,7 @@
+"""Device ms of one request's kernels launched inside the port's
+`vv.stage=dn.brushnet` ranges (each BrushNet call), rank 0."""
+
+
+def read(t):
+    ks = t.in_stage("dn.brushnet")
+    return sum(k.us for k in ks) / 1e3 if ks else None

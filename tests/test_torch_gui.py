@@ -376,8 +376,9 @@ def test_rows_from_profiler_names_the_stages():
     stage_timers: every row lies in its stage or IDLE, the flop counts of
     the two ops reach their stages, and the shares sum to 1. Then CUDA
     activity as the card's profiler reports it (made up here): a kernel
-    lies in the stage, and takes the `vv.flops=` count, of the ranges
-    around the CUDA call that launched it (same correlation id), a kernel
+    lies in the stage of the ranges around the CUDA call that launched it
+    (same correlation id), not in the attention call's range, and takes
+    the operations that range's name counts (4 B H Sq Sk D), a kernel
     whose call is missing lies in "unstaged", the device's copies of the
     ranges count for nothing, and IDLE is the span the kernels leave; the
     kernel table sums each kernel over its stages."""
@@ -406,7 +407,8 @@ def test_rows_from_profiler_names_the_stages():
 
     events = [
         _event(STAGE_RANGE + "gui.test_cuda", 0.0, 100.0, annotation=True),
-        _event("vv.flops=4000", 10.0, 20.0, annotation=True),
+        _event(STAGE_RANGE + "attention:flash:1x1x10x10x10", 10.0, 20.0,
+               annotation=True),
         _event("cudaLaunchKernel", 12.0, 14.0, id=7),
         _event("cudaLaunchKernel", 60.0, 61.0, id=8),
         _event(STAGE_RANGE + "gui.test_cuda", 30.0, 70.0, device=True,

@@ -29,16 +29,19 @@ overlapping windows and overlapping chunks of a long video agree.
 
 `forward` records the JAX package's stages (`utils/observability.py`):
 dn.upload_encode, dn.windows (the windows' denoise and blend) and
-dn.decode_fetch (the VAE decodes, which here run between the windows). They
-read the host clock and never synchronize the card (`synced` is 0), so
-device work still queued bills to whichever stage next waits for it.
+dn.decode_fetch (the VAE decodes, which here run between the windows). Their
+seconds read the host clock and never synchronize the card (`synced` is
+0), so device work still queued bills to whichever stage next waits for
+it; under VV_LOG on the card each also gives the device's time. Each is a
+range in a profiler's trace too, as are `dn.window` and `dn.decode`, and
+inside them `dn.vae` (every VAE encode and decode, with the pixel scaling),
+`dn.brushnet` (each BrushNet call) and `dn.unet` (each UNet call).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import re
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -66,7 +69,7 @@ from videovanish_tpu_torch.ops.resize import (
     resize_nearest_2d,
 )
 from videovanish_tpu_torch.utils.observability import (
-    record_sharding, record_stage, stage_timer, trace_annotation,
+    StageSum, record_sharding, stage_timer, trace_annotation,
 )
 
 # (global frame indices, (h8, w8, C)) -> (T, h8, w8, C) noise
@@ -237,16 +240,19 @@ class DiffuEraser:
     # ------------------------------------------------------------------
     def _encode(self, rgb01: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) f32 in [0, 1] -> scaled latents (N, 4, h8, w8) f32."""
-        x = (rgb01 * 2.0 - 1.0).permute(0, 3, 1, 2).to(self.dtype)
-        return self.vae.encode(x).float() * self.cfg.vae_scaling_factor
+        with trace_annotation("dn.vae"):
+            x = (rgb01 * 2.0 - 1.0).permute(0, 3, 1, 2).to(self.dtype)
+            return self.vae.encode(x).float() * self.cfg.vae_scaling_factor
 
     def _decode(self, z: torch.Tensor) -> torch.Tensor:
         """Latents (N, 4, h8, w8) f32 -> RGB (N, H, W, 3) uint8."""
         record_sharding("vae_decode", latents=z)
-        x = self.vae.decode((z / self.cfg.vae_scaling_factor).to(self.dtype))
-        x01 = ((x.float() + 1.0) / 2.0).clamp(0.0, 1.0)
-        return torch.round(x01 * 255.0).clamp(0, 255).to(torch.uint8) \
-            .permute(0, 2, 3, 1)
+        with trace_annotation("dn.vae"):
+            x = self.vae.decode((z / self.cfg.vae_scaling_factor)
+                                .to(self.dtype))
+            x01 = ((x.float() + 1.0) / 2.0).clamp(0.0, 1.0)
+            return torch.round(x01 * 255.0).clamp(0, 255).to(torch.uint8) \
+                .permute(0, 2, 3, 1)
 
     def _denoise_window(self, prior_lat, masked_lat, mask_lat, noise,
                         prompt_emb, guidance: float = 0.0, shard=None,
@@ -271,9 +277,11 @@ class DiffuEraser:
                                dtype=torch.long)
             if not feats or not cfg.brushnet_feature_reuse:
                 bsample = torch.cat([x, masked_lat, mask_lat], 1).to(dt)
-                feats = {"c": self.brushnet(bsample, t_vec, txt)}
+                with trace_annotation("dn.brushnet"):
+                    feats = {"c": self.brushnet(bsample, t_vec, txt)}
                 if use_cfg:
-                    feats["u"] = self.brushnet(bsample, t_vec, null)
+                    with trace_annotation("dn.brushnet"):
+                        feats["u"] = self.brushnet(bsample, t_vec, null)
 
             def eps_for(cond, which):
                 cache = None
@@ -285,8 +293,9 @@ class DiffuEraser:
                     else:
                         cache.replay = True
                 bd, bm, bu = feats[which]
-                return self.unet(x.to(dt), t_vec, cond, t_frames or T, bd,
-                                 bm, bu, cache=cache, shard=shard)
+                with trace_annotation("dn.unet"):
+                    return self.unet(x.to(dt), t_vec, cond, t_frames or T,
+                                     bd, bm, bu, cache=cache, shard=shard)
 
             eps = eps_for(txt, "c")
             if use_cfg:
@@ -431,75 +440,73 @@ class DiffuEraser:
         if roi is not None:
             out[:] = frames[:T_out]  # out-of-ROI pixels = resized input
         decoded_upto = 0
-        decode_s, decodes = 0.0, 0
+        decodes = 0
+        decode_sum, windows_sum = StageSum("dn.decode_fetch"), \
+            StageSum("dn.windows")
 
         def decode_final(upto):
             """Decode the finished frames [decoded_upto, upto) in batches of
             `chunk` (the last batch shifts back to stay full); frames of a
             withheld latent tail are never decoded."""
-            nonlocal decoded_upto, decode_s, decodes
-            t0 = time.perf_counter()
-            upto = min(upto, T_out)
-            while decoded_upto < upto:
-                i = decoded_upto
-                n = min(chunk, T_out - i)
-                if n < chunk and T_out >= chunk:
-                    if upto < T_out:
-                        break  # wait for more finished frames
-                    i, n = T_out - chunk, chunk
-                nb = min(chunk, T)
-                z_c = acc[i:i + nb] / wsum[i:i + nb]
-                if self.latent_hook is not None:
-                    self.latent_hook(z_c)
-                with trace_annotation("dn.decode"):
-                    u8 = run_sharded(self.mesh, self._decode, z_c)
-                end = min(i + nb, T_out)
-                start = decoded_upto
-                if roi is None:
-                    out[start:end] = u8[start - i:end - i]
-                else:
-                    y0, y1, x0, x1 = roi
-                    out[start:end, y0:y1, x0:x1] = \
-                        u8[start - i:end - i, y0:y1, x0:x1]
-                decoded_upto = min(i + n, upto)
-                decodes += 1
-            decode_s += time.perf_counter() - t0
+            nonlocal decoded_upto, decodes
+            with decode_sum.span():
+                upto = min(upto, T_out)
+                while decoded_upto < upto:
+                    i = decoded_upto
+                    n = min(chunk, T_out - i)
+                    if n < chunk and T_out >= chunk:
+                        if upto < T_out:
+                            break  # wait for more finished frames
+                        i, n = T_out - chunk, chunk
+                    nb = min(chunk, T)
+                    z_c = acc[i:i + nb] / wsum[i:i + nb]
+                    if self.latent_hook is not None:
+                        self.latent_hook(z_c)
+                    with trace_annotation("dn.decode"):
+                        u8 = run_sharded(self.mesh, self._decode, z_c)
+                    end = min(i + nb, T_out)
+                    start = decoded_upto
+                    if roi is None:
+                        out[start:end] = u8[start - i:end - i]
+                    else:
+                        y0, y1, x0, x1 = roi
+                        out[start:end, y0:y1, x0:x1] = \
+                            u8[start - i:end - i, y0:y1, x0:x1]
+                    decoded_upto = min(i + n, upto)
+                    decodes += 1
 
-        t_windows = time.perf_counter()
         n_data = data_coords(self.mesh)[1]
         self.window_split = {"sharded": 0, "whole": 0}
         for wi, (s, L) in enumerate(plan):
-            prog(10 + 70 * wi / max(1, len(plan)),
-                 f"denoising window {wi + 1}/{len(plan)}")
-            # frames split over "data" only where the window divides by it
-            # (run_sharded runs it whole on every rank otherwise)
-            ring = n_data > 1 and L % n_data == 0
-            self.window_split["sharded" if ring else "whole"] += 1
-            with trace_annotation("dn.window"):
-                z = run_sharded(self.mesh, functools.partial(
-                    self._denoise_window, prompt_emb=prompt_emb,
-                    guidance=float(guidance_scale or 0.0),
-                    shard=self.shard if ring else None, t_frames=L),
-                    prior_lat[s:s + L], masked_lat[s:s + L], m_lat[s:s + L],
-                    noise[s:s + L])
-            bw = window_blend_weights(
-                L, min(cfg.clip_overlap, L - 1) if L > 1 else 0,
-                # with a latent carry the first edge ramps up from the
-                # previous chunk; with a withheld tail the last edge ramps
-                # down into the next one
-                is_first=(wi == 0 and carry_n == 0),
-                is_last=(wi == len(plan) - 1 and return_latent_tail == 0))
-            bwt = torch.from_numpy(bw).to(dev)[:, None, None, None]
-            acc[s:s + L] += bwt * z
-            wsum[s:s + L] += bwt
+            with windows_sum.span():
+                prog(10 + 70 * wi / max(1, len(plan)),
+                     f"denoising window {wi + 1}/{len(plan)}")
+                # frames split over "data" only where the window divides by
+                # it (run_sharded runs it whole on every rank otherwise)
+                ring = n_data > 1 and L % n_data == 0
+                self.window_split["sharded" if ring else "whole"] += 1
+                with trace_annotation("dn.window"):
+                    z = run_sharded(self.mesh, functools.partial(
+                        self._denoise_window, prompt_emb=prompt_emb,
+                        guidance=float(guidance_scale or 0.0),
+                        shard=self.shard if ring else None, t_frames=L),
+                        prior_lat[s:s + L], masked_lat[s:s + L],
+                        m_lat[s:s + L], noise[s:s + L])
+                bw = window_blend_weights(
+                    L, min(cfg.clip_overlap, L - 1) if L > 1 else 0,
+                    # with a latent carry the first edge ramps up from the
+                    # previous chunk; with a withheld tail the last edge
+                    # ramps down into the next one
+                    is_first=(wi == 0 and carry_n == 0),
+                    is_last=(wi == len(plan) - 1 and return_latent_tail == 0))
+                bwt = torch.from_numpy(bw).to(dev)[:, None, None, None]
+                acc[s:s + L] += bwt * z
+                wsum[s:s + L] += bwt
             decode_final(plan[wi + 1][0] if wi + 1 < len(plan) else T)
-        record_stage("dn.windows",
-                     time.perf_counter() - t_windows - decode_s,
-                     windows=len(plan), synced=0)
-        record_stage("dn.decode_fetch", decode_s, frames=T_out, synced=0,
-                     fetch_bytes=0,
-                     dispatches=len(lat_c) + len(prior_c) + len(plan)
-                     + decodes)
+        windows_sum.record(windows=len(plan), synced=0)
+        decode_sum.record(frames=T_out, synced=0, fetch_bytes=0,
+                          dispatches=len(lat_c) + len(prior_c) + len(plan)
+                          + decodes)
         prog(100, "diffusion inpainting done")
         if return_latent_tail:
             return out, (acc[T_out:].permute(0, 2, 3, 1), wsum[T_out:])

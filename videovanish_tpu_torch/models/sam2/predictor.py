@@ -29,12 +29,25 @@ logits and memory bank; on the CPU everything is f32.
 Propagation records the JAX package's stages per encode chunk
 (`utils/observability.py`): sam2.wire_prep (stacking and the I420
 conversion on the host), sam2.encode_dispatch, sam2.step_dispatch (the
-chunk's steps) and sam2.fetch (the masks to the host). They read the host
-clock, so device time bills to sam2.fetch, where the host waits.
+chunk's steps) and sam2.fetch (the masks to the host). Their seconds read
+the host clock, so device time bills to sam2.fetch, where the host waits;
+under VV_LOG on the card each also gives the device's time.
+
+Each record's timer is also a range in a profiler's trace, and the model's
+stages open ranges of their own, with fixed names:
+  sam2.encode            an encode chunk or a prompt frame's encode: the
+                         upload, I420 -> RGB, resize, Hiera trunk, neck
+  sam2.memory_attention  the memory kv and positions, memory attention
+  sam2.decode            prompt encoder, mask decoder, mask selection,
+                         logits resize (and the threshold of binary masks)
+  sam2.memory_encode     the high-res mask, memory encoder, bank writes
+  sam2.upload            each host -> device copy, inside its stage
+  sam2.fetch             each device -> host copy of masks or logits
+Every device operation of a propagation step lies in one of the four
+compute stages, or in sam2.fetch.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -55,7 +68,9 @@ from videovanish_tpu_torch.ops.colorspace import (
     rgb_to_yuv420_host, yuv420_to_rgb01,
 )
 from videovanish_tpu_torch.ops.resize import resize_bilinear
-from videovanish_tpu_torch.utils.observability import record_stage
+from videovanish_tpu_torch.utils.observability import (
+    StageSum, stage_timer, trace_annotation,
+)
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -276,15 +291,20 @@ class Sam2VideoPredictor:
         self._stage("encode", f4, f8, f16)
         return f4, f8, f16
 
+    def _upload(self, a) -> torch.Tensor:
+        """A host array on the model's device, in a sam2.upload range."""
+        with trace_annotation("sam2.upload"):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
     def encode_rgb(self, frames_u8) -> tuple:
         """(N, H0, W0, 3) uint8 RGB (numpy) -> neck features."""
-        x = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
-        return self.encode(x.float() / 255.0)
+        with trace_annotation("sam2.encode"):
+            return self.encode(self._upload(frames_u8).float() / 255.0)
 
     def encode_yuv(self, yuv_u8) -> tuple:
         """(N, H0*3//2, W0) I420 uint8 (numpy) -> neck features."""
-        x = torch.from_numpy(np.ascontiguousarray(yuv_u8)).to(self.device)
-        return self.encode(yuv420_to_rgb01(x))
+        with trace_annotation("sam2.encode"):
+            return self.encode(yuv420_to_rgb01(self._upload(yuv_u8)))
 
     def decode(self, f16, f4, f8, mem_feats, mem_valid, mem_age, ptr_feats,
                ptr_valid, ptr_tdiff, points, labels, H0: int, W0: int):
@@ -300,70 +320,76 @@ class Sam2VideoPredictor:
         d, n, T16 = cfg.neck_d_model, cfg.num_maskmem, self.tokens16
         O = mem_feats.shape[0]
         splits = d // cfg.mem_dim
+        up = self._upload
 
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        with trace_annotation("sam2.memory_attention"):
+            x = f16.reshape(1, T16, d).expand(O, T16, d).to(dt)
+            no_mem = x + m.no_mem_embed.to(dt)
+            any_mem = np.asarray(mem_valid).any(1) | \
+                np.asarray(ptr_valid).any(1)
+            if any_mem.any():
+                # memory kv: spatial slots with their temporal encodings,
+                # then the pointer tokens with the projected sine encoding
+                # of their normalised temporal offsets
+                tpos = m.maskmem_tpos_enc.reshape(n, cfg.mem_dim)[
+                    up(mem_age).long()]
+                pos_sp = (self._mem_spatial_pos[None, None]
+                          + tpos[:, :, None, :]).reshape(O, n * T16,
+                                                         cfg.mem_dim)
+                pe_dim = d // 2
+                dim_t = 10000.0 ** (2.0 * (torch.arange(pe_dim, device=dev)
+                                           // 2).float() / pe_dim)
+                ang = up(ptr_tdiff)[..., None] / dim_t
+                sine_pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+                ptr_pos = m.obj_ptr_tpos_proj(sine_pe).repeat_interleave(
+                    splits, dim=1)
+                kv = torch.cat([mem_feats.reshape(O, n * T16, cfg.mem_dim),
+                                ptr_feats], dim=1).to(dt)
+                pos = torch.cat([pos_sp, ptr_pos], dim=1)
+                valid = torch.cat([up(mem_valid).repeat_interleave(T16, dim=1),
+                                   up(ptr_valid)], dim=1)
+                cond = m.memory_attention(x, self._pos16, kv, pos, valid)
+                # a frame with no memory takes the learned no-memory
+                # embedding
+                x = torch.where(up(any_mem)[:, None, None], cond, no_mem)
+            else:
+                x = no_mem
 
-        x = f16.reshape(1, T16, d).expand(O, T16, d).to(dt)
-        no_mem = x + m.no_mem_embed.to(dt)
-        any_mem = np.asarray(mem_valid).any(1) | np.asarray(ptr_valid).any(1)
-        if any_mem.any():
-            # memory kv: spatial slots with their temporal encodings, then
-            # the pointer tokens with the projected sine encoding of their
-            # normalised temporal offsets
-            tpos = m.maskmem_tpos_enc.reshape(n, cfg.mem_dim)[
-                up(mem_age).long()]
-            pos_sp = (self._mem_spatial_pos[None, None] + tpos[:, :, None, :]
-                      ).reshape(O, n * T16, cfg.mem_dim)
-            pe_dim = d // 2
-            dim_t = 10000.0 ** (2.0 * (torch.arange(pe_dim, device=dev) // 2)
-                                .float() / pe_dim)
-            ang = up(ptr_tdiff)[..., None] / dim_t
-            sine_pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
-            ptr_pos = m.obj_ptr_tpos_proj(sine_pe).repeat_interleave(
-                splits, dim=1)
-            kv = torch.cat([mem_feats.reshape(O, n * T16, cfg.mem_dim),
-                            ptr_feats], dim=1).to(dt)
-            pos = torch.cat([pos_sp, ptr_pos], dim=1)
-            valid = torch.cat([up(mem_valid).repeat_interleave(T16, dim=1),
-                               up(ptr_valid)], dim=1)
-            cond = m.memory_attention(x, self._pos16, kv, pos, valid)
-            # a frame with no memory takes the learned no-memory embedding
-            x = torch.where(up(any_mem)[:, None, None], cond, no_mem)
-        else:
-            x = no_mem
-        x = x.reshape(O, self.s16, self.s16, d)
+        with trace_annotation("sam2.decode"):
+            x = x.reshape(O, self.s16, self.s16, d)
+            pe_enc = m.sam_prompt_encoder
+            lab = up(labels).long()
+            sparse, no_mask = pe_enc(up(points), lab)
+            # the real prompt tokens and exactly one "not a point" pad token
+            real = lab >= 0
+            pad_rank = torch.cumsum((~real).long(), dim=1)
+            sparse_valid = real | ((pad_rank == 1) & ~real)
+            x = x + no_mask.to(dt)
+            dense_pe = pe_enc.dense_pe(self.s16, self.s16)
+            out = m.sam_mask_decoder(
+                x, dense_pe[None].expand(O, -1, -1, -1), sparse.to(dt),
+                f4.expand(O, -1, -1, -1), f8.expand(O, -1, -1, -1),
+                sparse_valid, m.obj_ptr_proj)
 
-        pe_enc = m.sam_prompt_encoder
-        lab = up(labels).long()
-        sparse, no_mask = pe_enc(up(points), lab)
-        # the real prompt tokens and exactly one "not a point" pad token
-        real = lab >= 0
-        pad_rank = torch.cumsum((~real).long(), dim=1)
-        sparse_valid = real | ((pad_rank == 1) & ~real)
-        x = x + no_mask.to(dt)
-        dense_pe = pe_enc.dense_pe(self.s16, self.s16)
-        out = m.sam_mask_decoder(
-            x, dense_pe[None].expand(O, -1, -1, -1), sparse.to(dt),
-            f4.expand(O, -1, -1, -1), f8.expand(O, -1, -1, -1), sparse_valid,
-            m.obj_ptr_proj)
-
-        # multimask (best of masks 1..3 by IoU) with at most one click,
-        # mask 0 otherwise; NO_OBJ_SCORE where the object is absent
-        multi = real.sum(1) <= 1
-        best = torch.where(multi, out["iou"][:, 1:].argmax(-1) + 1,
-                           torch.zeros_like(multi, dtype=torch.long))
-        appearing = out["obj_score"][:, 0] > 0
-        masks_all = torch.where(appearing[:, None, None, None], out["masks"],
-                                torch.full_like(out["masks"], NO_OBJ_SCORE))
-        masks = masks_all[torch.arange(O, device=dev), best]
-        ptr_sel = out["obj_ptrs"][torch.arange(O, device=dev), best]
-        # occlusion-aware pointer: the no-object pointer where absent
-        lam = appearing.to(ptr_sel.dtype)[:, None]
-        obj_ptr = lam * ptr_sel + (1.0 - lam) * m.no_obj_ptr.to(ptr_sel.dtype)
-        logits = resize_bilinear(masks[..., None], H0, W0)[..., 0]
-        self._stage("decode", logits)
-        return masks[..., None], logits, obj_ptr, x, out["obj_score"]
+            # multimask (best of masks 1..3 by IoU) with at most one click,
+            # mask 0 otherwise; NO_OBJ_SCORE where the object is absent
+            multi = real.sum(1) <= 1
+            best = torch.where(multi, out["iou"][:, 1:].argmax(-1) + 1,
+                               torch.zeros_like(multi, dtype=torch.long))
+            appearing = out["obj_score"][:, 0] > 0
+            masks_all = torch.where(
+                appearing[:, None, None, None], out["masks"],
+                torch.full_like(out["masks"], NO_OBJ_SCORE))
+            masks = masks_all[torch.arange(O, device=dev), best]
+            ptr_sel = out["obj_ptrs"][torch.arange(O, device=dev), best]
+            # occlusion-aware pointer: the no-object pointer where absent
+            lam = appearing.to(ptr_sel.dtype)[:, None]
+            obj_ptr = lam * ptr_sel + \
+                (1.0 - lam) * m.no_obj_ptr.to(ptr_sel.dtype)
+            masks = masks[..., None]
+            logits = resize_bilinear(masks, H0, W0)[..., 0]
+            self._stage("decode", logits)
+        return masks, logits, obj_ptr, x, out["obj_score"]
 
     def step(self, f16, f4, f8, bank_feats, bank_ptrs, mem_valid, mem_age,
              ptr_valid, ptr_tdiff, points, labels, write_slot: int,
@@ -375,23 +401,24 @@ class Sam2VideoPredictor:
         masks_s4, logits, obj_ptr, cond_f16, obj_score = self.decode(
             f16, f4, f8, bank_feats, mem_valid, mem_age, bank_ptrs, ptr_valid,
             ptr_tdiff, points, labels, H0, W0)
-        # the image-resolution mask, binarised on prompted frames, else a
-        # sigmoid, scaled by 20 and biased by -10
-        S = cfg.image_size
-        m_hi = resize_bilinear(masks_s4, S, S)
-        mask = (m_hi > 0).float() if binarize else torch.sigmoid(m_hi)
-        new_feat = self.model.memory_encoder(
-            cond_f16, (mask * 20.0 - 10.0).to(self.dtype)).float()
-        # occluded frames: add the learned no-object spatial embedding
-        absent = (obj_score[:, 0] <= 0).float()
-        new_feat = new_feat + absent[:, None, None, None] * \
-            self.model.no_obj_embed_spatial.float().reshape(-1)
-        self._stage("memory_encode", new_feat)
-        splits = cfg.neck_d_model // cfg.mem_dim
-        bank_feats[:, write_slot] = new_feat.reshape(-1, self.tokens16,
-                                                     cfg.mem_dim)
-        bank_ptrs[:, ptr_slot * splits:(ptr_slot + 1) * splits] = \
-            obj_ptr.float().reshape(-1, splits, cfg.mem_dim)
+        with trace_annotation("sam2.memory_encode"):
+            # the image-resolution mask, binarised on prompted frames, else
+            # a sigmoid, scaled by 20 and biased by -10
+            S = cfg.image_size
+            m_hi = resize_bilinear(masks_s4, S, S)
+            mask = (m_hi > 0).float() if binarize else torch.sigmoid(m_hi)
+            new_feat = self.model.memory_encoder(
+                cond_f16, (mask * 20.0 - 10.0).to(self.dtype)).float()
+            # occluded frames: add the learned no-object spatial embedding
+            absent = (obj_score[:, 0] <= 0).float()
+            new_feat = new_feat + absent[:, None, None, None] * \
+                self.model.no_obj_embed_spatial.float().reshape(-1)
+            self._stage("memory_encode", new_feat)
+            splits = cfg.neck_d_model // cfg.mem_dim
+            bank_feats[:, write_slot] = new_feat.reshape(-1, self.tokens16,
+                                                         cfg.mem_dim)
+            bank_ptrs[:, ptr_slot * splits:(ptr_slot + 1) * splits] = \
+                obj_ptr.float().reshape(-1, splits, cfg.mem_dim)
         return logits
 
     def _empty_bank(self, O: int):
@@ -516,7 +543,8 @@ class Sam2VideoPredictor:
         logits = self.decode(f16, f4, f8, feats, valid, age, ptrs, pvalid,
                              tdiff, points, labels, state["H0"],
                              state["W0"])[1]
-        return logits.cpu().numpy()
+        with trace_annotation("sam2.fetch"):
+            return logits.cpu().numpy()
 
     def propagate_in_video(self, inference_state, start_frame_idx=None,
                            max_frame_num_to_track=None, reverse=False,
@@ -557,19 +585,16 @@ class Sam2VideoPredictor:
         use_yuv = self.cfg.wire == "yuv420" and H0 % 2 == 0 and W0 % 2 == 0
         no_points = np.zeros((O, MAX_POINTS, 2), np.float32)
         no_labels = np.full((O, MAX_POINTS), -1, np.int32)
+        steps, fetches = StageSum("sam2.step_dispatch"), StageSum("sam2.fetch")
         for pos in range(0, len(idxs), ENCODE_CHUNK):
             sel = idxs[pos:pos + ENCODE_CHUNK]
-            t0 = time.perf_counter()
-            batch = np.stack([np.asarray(frames[i]) for i in sel])
-            wire = rgb_to_yuv420_host(batch) if use_yuv else batch
-            t1 = time.perf_counter()
-            record_stage("sam2.wire_prep", t1 - t0, frames=len(sel),
-                         bytes=int(wire.nbytes))
-            f4c, f8c, f16c = (self.encode_yuv(wire) if use_yuv
-                              else self.encode_rgb(wire))
-            record_stage("sam2.encode_dispatch", time.perf_counter() - t1,
-                         frames=len(sel))
-            step_s = fetch_s = 0.0
+            with stage_timer("sam2.wire_prep", frames=len(sel)) as rec:
+                batch = np.stack([np.asarray(frames[i]) for i in sel])
+                wire = rgb_to_yuv420_host(batch) if use_yuv else batch
+                rec["bytes"] = int(wire.nbytes)
+            with stage_timer("sam2.encode_dispatch", frames=len(sel)):
+                f4c, f8c, f16c = (self.encode_yuv(wire) if use_yuv
+                                  else self.encode_rgb(wire))
             for j, t in enumerate(sel):
                 # occupancy before this frame writes, as one step at a time
                 is_cond = t in state["prompts"]
@@ -579,20 +604,19 @@ class Sam2VideoPredictor:
                     else (no_points, no_labels)
                 ws = meta.choose_slot(t, is_cond)
                 ps = meta.choose_ptr_slot(t, is_cond)
-                t2 = time.perf_counter()
-                logits = self.step(
-                    f16c[j:j + 1], f4c[j:j + 1], f8c[j:j + 1], feats, ptrs,
-                    valid, age, pvalid, tdiff, points, labels, ws, ps,
-                    is_cond, H0, W0)
-                out = (logits > 0).to(torch.uint8) if yield_binary \
-                    else logits
-                t3 = time.perf_counter()
-                out = out.cpu().numpy()
-                step_s += t3 - t2
-                fetch_s += time.perf_counter() - t3
+                f16, f4, f8 = f16c[j:j + 1], f4c[j:j + 1], f8c[j:j + 1]
+                with steps.span():
+                    out = self.step(f16, f4, f8, feats, ptrs, valid, age,
+                                    pvalid, tdiff, points, labels, ws, ps,
+                                    is_cond, H0, W0)
+                    if yield_binary:
+                        with trace_annotation("sam2.decode"):
+                            out = (out > 0).to(torch.uint8)
+                with fetches.span():
+                    out = out.cpu().numpy()
                 yield t, obj_ids, [out[i] for i in range(O)]
-            record_stage("sam2.step_dispatch", step_s, frames=len(sel))
-            record_stage("sam2.fetch", fetch_s, frames=len(sel))
+            steps.record(frames=len(sel))
+            fetches.record(frames=len(sel))
 
 
 def build_sam2_video_predictor(config_file=None, ckpt_path=None, device=None,

@@ -27,16 +27,29 @@ grad the wrappers launch their forward kernel directly, as for inference.
 Layout: (B, H, S, D). The kernels read q/k/v through strides (head dim
 contiguous) and write their output into (B, S, H, D) storage, so callers
 that split heads off a (B, S, H*D) projection need no transpose copies.
+
+Tracing. While a torch profiler runs, `attention`, `attention_tokenmajor`
+and the two backward entries each open one range around the whole call,
+`vv.stage=attention:<route>:<B>x<H>x<Sq>x<Sk>x<D>` (`attention_bwd:` for
+the backward entries). The route names what ran: "flash", "packed" or
+"tokenmajor" for a kernel, "plain" for the plain version (every call on
+the CPU). `utils/profiling` counts a kernel route's operations from the
+name (4 B H Sq Sk D, backward 10x); the plain route's matmuls keep
+torch's own count.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 
 import torch
 
 from videovanish_tpu_torch.ops import kernels
+from videovanish_tpu_torch.utils.observability import (
+    profiler_running, trace_annotation,
+)
 
 _LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
@@ -48,6 +61,18 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+def _dims(q, k) -> tuple:
+    """(B, H, Sq, Sk, D) of (B, H, S, D) q and k."""
+    return (*q.shape[:3], k.shape[2], q.shape[3])
+
+
+def _span(kind: str, route: str, dims):
+    """The call's range (see the module's doc) while a profiler runs."""
+    if not profiler_running():
+        return contextlib.nullcontext()
+    return trace_annotation(f"{kind}:{route}:{'x'.join(map(str, dims))}")
 
 
 # ---------------------------------------------------------------------------
@@ -165,14 +190,12 @@ def _bhsd_dims(q, k, v, out):
     return B, H, Sq, Sk, D
 
 
-def _run(fn, ops, dims, scale, *ts, extra=(), flops_per: int) -> None:
+def _run(fn, ops, dims, scale, *ts, extra=()) -> None:
     """Launch `fn` on the current stream of the tensors `ts`' card, with its
     operands given as `_operand` tuples (q, k, v and out; the backward's
     q, k, v, out, dout, dq, dk, dv), the pointers `extra` after them (the
     C functions take them in that order), dims (B, H, Sq, Sk, D), and
-    scale * log2(e). `flops_per`: the launch's operations per B H Sq Sk D
-    (a forward's two products 4, a backward's five 10), named for
-    utils/profiling's MFU in a `vv.flops=` range while a profiler runs."""
+    scale * log2(e)."""
     dev = ts[0].get_device()
     if any(t.get_device() != dev for t in ts):
         raise ValueError("q, k, v must lie on one device")
@@ -189,12 +212,7 @@ def _run(fn, ops, dims, scale, *ts, extra=(), flops_per: int) -> None:
     stream = torch._C._cuda_getCurrentRawStream(dev)
     args = (*(op[0] for op in ops), *extra, B, H, Sq, Sk, D, strides,
             float(scale) * _LOG2E, stream)
-    if torch.autograd.profiler._is_profiler_enabled:
-        flops = flops_per * B * H * Sq * Sk * D
-        with torch.profiler.record_function(f"vv.flops={flops}"):
-            rc = fn(*args)
-    else:
-        rc = fn(*args)
+    rc = fn(*args)
     if rc != 0:  # a cudaError_t, or 1000 + the CUresult of a tensor map
         raise RuntimeError(f"{fn.__name__} failed: error {rc}")
 
@@ -205,8 +223,7 @@ def _launch(fn, q, k, v, out, scale, extra=()) -> None:
     pointer (None for none)."""
     ops = [_operand(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"),
                                        (out, "out"))]
-    _run(fn, ops, _bhsd_dims(q, k, v, out), scale, q, k, v, out, extra=extra,
-         flops_per=4)
+    _run(fn, ops, _bhsd_dims(q, k, v, out), scale, q, k, v, out, extra=extra)
 
 
 def _bhsd_out(q):
@@ -278,8 +295,15 @@ def flash_attention_backward(q, k, v, out, dout, lse, scale):
     """(dq, dk, dv) of `flash_attention` at (q, k, v) with output `out` and
     its gradient `dout`: the flash_attn_bwd kernel on the card (lse from
     the forward), `attention_backward_ref` on the CPU."""
-    if not _on_card(q, k, v, out, dout):
-        return attention_backward_ref(q, k, v, out, dout, scale)
+    on_card = _on_card(q, k, v, out, dout)
+    with _span("attention_bwd", "flash" if on_card else "plain",
+               _dims(q, k)):
+        if not on_card:
+            return attention_backward_ref(q, k, v, out, dout, scale)
+        return _flash_backward(q, k, v, out, dout, lse, scale)
+
+
+def _flash_backward(q, k, v, out, dout, lse, scale):
     D = q.shape[-1]
     if not _flash_bwd_takes(_padded(D)):
         raise ValueError(f"flash_attn_bwd is not built for head dim {D}")
@@ -298,7 +322,7 @@ def flash_attention_backward(q, k, v, out, dout, lse, scale):
                          "log-sum-exp")
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _run(kernels.library("flash_attn_bwd").vv_flash_attn_bwd, ops, dims,
-         scale, *ts, extra=(lse.data_ptr(), delta.data_ptr()), flops_per=10)
+         scale, *ts, extra=(lse.data_ptr(), delta.data_ptr()))
     LAUNCHES[f"flash_attn_bwd[D={D},Sq={Sq},Sk={Sk}]"] += 1
     return tuple(grads)
 
@@ -357,7 +381,7 @@ def _small_seq(q, k, v, out, scale, layout: str, heads: int = 0):
         raise ValueError(f"small_seq_attn does not take D={D}, Sq={Sq}, "
                          f"Sk={Sk}")
     _run(kernels.library("small_seq_attn").vv_small_seq_attn, ops, dims,
-         scale, q, k, v, out, flops_per=4)
+         scale, q, k, v, out)
     LAUNCHES[f"small_seq_attn[{layout},N={B},D={D},S={Sq}]"] += 1
     return out
 
@@ -389,12 +413,21 @@ def small_seq_attention_backward(q, k, v, out, dout, scale, heads: int = 0):
     at (q, k, v) with output `out` and its gradient `dout`: the
     small_seq_attn_bwd kernel on the card, `attention_backward_ref` on the
     CPU."""
-    if not _on_card(q, k, v, out, dout):
+    on_card = _on_card(q, k, v, out, dout)
+    route = ("tokenmajor" if heads else "packed") if on_card else "plain"
+    dims = (q.shape[0], heads, q.shape[1], q.shape[1], q.shape[2] // heads) \
+        if heads else _dims(q, k)
+    with _span("attention_bwd", route, dims):
+        if on_card:
+            return _small_seq_backward(q, k, v, out, dout, scale, heads)
         if not heads:
             return attention_backward_ref(q, k, v, out, dout, scale)
         grads = attention_backward_ref(
             *(_split_heads(t, heads) for t in (q, k, v, out, dout)), scale)
         return tuple(_merge_heads(g) for g in grads)
+
+
+def _small_seq_backward(q, k, v, out, dout, scale, heads: int):
     dout = _kernel_layout(dout, heads)
     if heads:
         N, S, C = q.shape
@@ -420,7 +453,7 @@ def small_seq_attention_backward(q, k, v, out, dout, scale, heads: int = 0):
     ops = [_operand(t, n, heads) for t, n in zip(
         ts, ("q", "k", "v", "out", "dout", "dq", "dk", "dv"))]
     _run(kernels.library("small_seq_attn_bwd").vv_small_seq_attn_bwd, ops,
-         dims, scale, *ts, flops_per=10)
+         dims, scale, *ts)
     LAUNCHES[f"small_seq_attn_bwd[{layout},N={B},D={D},S={Sq}]"] += 1
     return tuple(grads)
 
@@ -507,18 +540,24 @@ def tokenmajor_route(shape, heads: int, on_card: bool) -> str:
     return attention_route((N, heads, S, d), (N, heads, S, d), on_card)
 
 
-def attention(q, k, v, scale: float | None = None, is_causal: bool = False,
-              key_mask=None):
-    """Multi-head attention over (B, H, S, D) tensors."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    route = attention_route(q.shape, k.shape, _on_card(q, k, v), is_causal,
-                            key_mask is not None)
+def _attend(route: str, q, k, v, scale, is_causal=False, key_mask=None):
     if route == "flash":
         return flash_attention(q, k, v, scale)
     if route == "packed":
         return small_seq_attention(q, k, v, scale)
     return plain_attention(q, k, v, scale, is_causal, key_mask)
+
+
+def attention(q, k, v, scale: float | None = None, is_causal: bool = False,
+              key_mask=None):
+    """Multi-head attention over (B, H, S, D) tensors."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    on_card = _on_card(q, k, v)
+    route = attention_route(q.shape, k.shape, on_card, is_causal,
+                            key_mask is not None)
+    with _span("attention", route if on_card else "plain", _dims(q, k)):
+        return _attend(route, q, k, v, scale, is_causal, key_mask)
 
 
 def attention_tokenmajor(q, k, v, heads: int, scale: float | None = None):
@@ -527,8 +566,12 @@ def attention_tokenmajor(q, k, v, heads: int, scale: float | None = None):
     d = C // heads
     if scale is None:
         scale = d ** -0.5
-    if tokenmajor_route(q.shape, heads, _on_card(q, k, v)) == "tokenmajor":
-        return small_seq_attention_tokenmajor(q, k, v, heads, scale)
-    out = attention(_split_heads(q, heads), _split_heads(k, heads),
-                    _split_heads(v, heads), scale=scale)
-    return out.permute(0, 2, 1, 3).reshape(N, S, C)
+    on_card = _on_card(q, k, v)
+    route = tokenmajor_route(q.shape, heads, on_card)
+    with _span("attention", route if on_card else "plain",
+               (N, heads, S, S, d)):
+        if route == "tokenmajor":
+            return small_seq_attention_tokenmajor(q, k, v, heads, scale)
+        out = _attend(route, _split_heads(q, heads), _split_heads(k, heads),
+                      _split_heads(v, heads), scale)
+        return out.permute(0, 2, 1, 3).reshape(N, S, C)

@@ -6,7 +6,9 @@ normalized [0..1] or absolute pixel coordinates (a value in [0, 1] is
 always read as normalized), clicks batched per (frame, object), rects as
 xywh -> xyxy, masks thresholded at logit 0, one HSV color per object with
 higher ids painted over lower. `device` (None means "cuda") picks where
-the predictor runs; the CPU only when asked for.
+the predictor runs; the CPU only when asked for. With VV_PROFILE_DIR set,
+each call leaves a torch.profiler trace there (`utils/observability`),
+the colouring on the host named `masker.render`.
 """
 from __future__ import annotations
 
@@ -14,6 +16,9 @@ import numpy as np
 
 from videovanish_tpu_torch.checkpoint import checkpoint_present
 from videovanish_tpu_torch.pipeline.colors import render_colored_masks
+from videovanish_tpu_torch.utils.observability import (
+    maybe_profile, stage_timer,
+)
 
 predictor = None  # built at first use, like the reference's global
 _predictor_key = None
@@ -61,65 +66,69 @@ def run_sam2_on_frames(frames_rgb, annotations, device=None, prog=None):
         "frames must be a non-empty list"
     H0, W0 = frames_rgb[0].shape[:2]
 
-    prog(1, "Setting up sam2")
-    pred = _get_predictor(device)
+    with maybe_profile():
+        prog(1, "Setting up sam2")
+        pred = _get_predictor(device)
 
-    prog(25, "Loading frames in to sam2")
-    state = pred.init_state(video_path=frames_rgb)
+        prog(25, "Loading frames in to sam2")
+        state = pred.init_state(video_path=frames_rgb)
 
-    def _to_px_x(x):
-        return float(x) * W0 if 0.0 <= x <= 1.0 else float(x)
+        def _to_px_x(x):
+            return float(x) * W0 if 0.0 <= x <= 1.0 else float(x)
 
-    def _to_px_y(y):
-        return float(y) * H0 if 0.0 <= y <= 1.0 else float(y)
+        def _to_px_y(y):
+            return float(y) * H0 if 0.0 <= y <= 1.0 else float(y)
 
-    def denorm_point(x, y):
-        return np.array([_to_px_x(x), _to_px_y(y)], dtype=np.float32)
+        def denorm_point(x, y):
+            return np.array([_to_px_x(x), _to_px_y(y)], dtype=np.float32)
 
-    def denorm_rect(x, y, w, h):
-        x1, y1 = _to_px_x(x), _to_px_y(y)
-        x2 = _to_px_x(x + w) if 0.0 <= w <= 1.0 else (x1 + float(w))
-        y2 = _to_px_y(y + h) if 0.0 <= h <= 1.0 else (y1 + float(h))
-        return np.array([min(x1, x2), min(y1, y2), max(x1, x2), max(y1, y2)],
-                        dtype=np.float32)
+        def denorm_rect(x, y, w, h):
+            x1, y1 = _to_px_x(x), _to_px_y(y)
+            x2 = _to_px_x(x + w) if 0.0 <= w <= 1.0 else (x1 + float(w))
+            y2 = _to_px_y(y + h) if 0.0 <= h <= 1.0 else (y1 + float(h))
+            return np.array([min(x1, x2), min(y1, y2), max(x1, x2),
+                             max(y1, y2)], dtype=np.float32)
 
-    keyframes = sorted(annotations.get("keyframes", []),
-                       key=lambda k: int(k["frame_idx"]))
-    for kf in keyframes:
-        frame_idx = int(kf["frame_idx"])
-        clicks_by_obj: dict[int, dict] = {}
+        keyframes = sorted(annotations.get("keyframes", []),
+                           key=lambda k: int(k["frame_idx"]))
+        for kf in keyframes:
+            frame_idx = int(kf["frame_idx"])
+            clicks_by_obj: dict[int, dict] = {}
 
-        def _add_click(obj_id, x, y, label):
-            d = clicks_by_obj.setdefault(int(obj_id), {"pts": [], "labels": []})
-            d["pts"].append(denorm_point(x, y))
-            d["labels"].append(label)
+            def _add_click(obj_id, x, y, label):
+                d = clicks_by_obj.setdefault(int(obj_id),
+                                             {"pts": [], "labels": []})
+                d["pts"].append(denorm_point(x, y))
+                d["labels"].append(label)
 
-        for c in kf.get("pos_clicks", []):
-            _add_click(c.get("obj", 1), c["x"], c["y"], 1)
-        for c in kf.get("neg_clicks", []):
-            _add_click(c.get("obj", 1), c["x"], c["y"], 0)
+            for c in kf.get("pos_clicks", []):
+                _add_click(c.get("obj", 1), c["x"], c["y"], 1)
+            for c in kf.get("neg_clicks", []):
+                _add_click(c.get("obj", 1), c["x"], c["y"], 0)
 
-        for obj_id, d in clicks_by_obj.items():
-            pred.add_new_points_or_box(
-                inference_state=state, frame_idx=frame_idx,
-                obj_id=int(obj_id),
-                points=np.vstack(d["pts"]).astype(np.float32),
-                labels=np.array(d["labels"], dtype=np.int32))
-        for r in kf.get("rects", []):
-            pred.add_new_points_or_box(
-                inference_state=state, frame_idx=frame_idx,
-                obj_id=int(r.get("obj", 1)),
-                box=denorm_rect(r["x"], r["y"], r["w"], r["h"]))
+            for obj_id, d in clicks_by_obj.items():
+                pred.add_new_points_or_box(
+                    inference_state=state, frame_idx=frame_idx,
+                    obj_id=int(obj_id),
+                    points=np.vstack(d["pts"]).astype(np.float32),
+                    labels=np.array(d["labels"], dtype=np.int32))
+            for r in kf.get("rects", []):
+                pred.add_new_points_or_box(
+                    inference_state=state, frame_idx=frame_idx,
+                    obj_id=int(r.get("obj", 1)),
+                    box=denorm_rect(r["x"], r["y"], r["w"], r["h"]))
 
-    prog(45, "Infering masks with sam2")
-    video_segments = {}
-    # binary masks taken on the device (logit > 0, the reference's threshold)
-    for out_frame_idx, out_obj_ids, out_masks in \
-            pred.propagate_in_video(state, yield_binary=True):
-        video_segments[out_frame_idx] = {
-            int(obj_id): np.asarray(out_masks[i] > 0)
-            for i, obj_id in enumerate(out_obj_ids)}
+        prog(45, "Infering masks with sam2")
+        video_segments = {}
+        # binary masks taken on the device (logit > 0, the reference's
+        # threshold)
+        for out_frame_idx, out_obj_ids, out_masks in \
+                pred.propagate_in_video(state, yield_binary=True):
+            video_segments[out_frame_idx] = {
+                int(obj_id): np.asarray(out_masks[i] > 0)
+                for i, obj_id in enumerate(out_obj_ids)}
 
-    prog(80, "Creating color mask from sam2 data")
-    return [render_colored_masks(video_segments.get(idx, {}), H0, W0)
-            for idx in range(len(frames_rgb))]
+        prog(80, "Creating color mask from sam2 data")
+        with stage_timer("masker.render", frames=len(frames_rgb)):
+            return [render_colored_masks(video_segments.get(idx, {}), H0, W0)
+                    for idx in range(len(frames_rgb))]

@@ -7,18 +7,19 @@ turns a torch.profiler run into rows of the same schema:
   operation           "<stage>/<kernel name>": the stage is the innermost
                       `stage_timer` / `trace_annotation` range
                       (utils/observability.py, a range named
-                      STAGE_RANGE + the stage) around the launch,
-                      "unstaged" outside every range; "IDLE" for the
-                      device's gaps
+                      STAGE_RANGE + the stage) around the launch, the
+                      attention calls' ranges left out, "unstaged"
+                      outside every range; "IDLE" for the device's gaps
   type                the kernel's class (`classify`, one table for every
                       profile script)
   total_self_time     microseconds, from the CUDA activity
   occurrences         launches
   measured_flop_rate  GFLOP/s: torch's with_flops counts of the aten
                       matmuls and convolutions, and for the hand-written
-                      attention kernels their own count (`ops/attention.py`
-                      names it in a `vv.flops=` range while a profiler
-                      runs: 4 B H Sq Sk D a forward, 10x a backward)
+                      attention kernels their own count, from the shapes
+                      in the name of the call's range (`ops/attention.py`:
+                      4 B H Sq Sk D a forward, 10x a backward; a plain
+                      route's matmuls keep torch's count)
   host_or_device      "device"; "host" (CPU self time) when the run has no
                       CUDA activity
 
@@ -33,6 +34,7 @@ rank; the InpaintGenerator's windows shard by groups).
 """
 from __future__ import annotations
 
+import math
 import re
 from collections import defaultdict
 
@@ -88,12 +90,36 @@ def peak_tflops(device_name: str | None = None) -> float:
 # CPU ops whose with_flops count is the matmul or convolution they launch
 _FLOP_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
              "aten::conv2d", "aten::conv1d", "aten::conv3d")
-_KERNEL_FLOPS = "vv.flops="
 UNSTAGED = "unstaged"
+# operations per B H Sq Sk D of an attention call's range, by its kind
+_ATTENTION_FLOPS = {"attention": 4, "attention_bwd": 10}
+_KERNEL_ROUTES = ("flash", "packed", "tokenmajor")
+
+
+def _attention_call(name: str):
+    """(kind, route, (B, H, Sq, Sk, D)) of an attention call's range
+    (`STAGE_RANGE` + "<kind>:<route>:<B>x<H>x<Sq>x<Sk>x<D>"), else None."""
+    if not name.startswith(STAGE_RANGE):
+        return None
+    kind, _, rest = name[len(STAGE_RANGE):].partition(":")
+    route, _, dims = rest.partition(":")
+    if kind not in _ATTENTION_FLOPS or not dims:
+        return None
+    return kind, route, tuple(int(x) for x in dims.split("x"))
 
 
 def _is_stage(evt) -> bool:
-    return evt.name.startswith(STAGE_RANGE)
+    return evt.name.startswith(STAGE_RANGE) and \
+        _attention_call(evt.name) is None
+
+
+def _kernel_flops(evt) -> float:
+    """The operations of a hand-written attention kernel's call, from its
+    range's name; 0 for any other event."""
+    call = _attention_call(evt.name)
+    if call is None or call[1] not in _KERNEL_ROUTES:
+        return 0.0
+    return float(_ATTENTION_FLOPS[call[0]] * math.prod(call[2]))
 
 
 def _stage_of(evt) -> str:
@@ -106,8 +132,8 @@ def _flops_of(evt) -> tuple:
     """(owner, flops) of the nearest event at or above `evt` that counts
     the operations its kernels do, or (None, 0)."""
     while evt is not None:
-        if evt.name.startswith(_KERNEL_FLOPS):
-            return evt, float(evt.name[len(_KERNEL_FLOPS):])
+        if _kernel_flops(evt):
+            return evt, _kernel_flops(evt)
         if evt.name in _FLOP_OPS and getattr(evt, "flops", 0):
             return evt, float(evt.flops)
         evt = evt.cpu_parent
@@ -156,9 +182,9 @@ def _device_records(cpu, device) -> list:
     """(stage, kernel name, microseconds, flops owner) of each device
     event. A kernel is placed by the host time of the CUDA call that
     launched it (the CPU event with its correlation id): the innermost
-    stage range, and the innermost `vv.flops=` range or counted aten op,
-    around that call. This holds for kernels launched outside any torch
-    op too (the attention kernels, through ctypes)."""
+    stage range, and the innermost kernel's attention range or counted
+    aten op, around that call. This holds for kernels launched outside
+    any torch op too (the attention kernels, through ctypes)."""
     launch = {e.id: e.time_range.start for e in cpu
               if e.name.startswith("cu")}
     times = [launch.get(d.id, float("nan")) for d in device]
@@ -167,7 +193,7 @@ def _device_records(cpu, device) -> list:
     ranges = [(e.time_range.start, e.time_range.end,
                e.name[len(STAGE_RANGE):]) for e in cpu if _is_stage(e)]
     owners = [(e.time_range.start, e.time_range.end, (id(e), _flops_of(e)[1]))
-              for e in cpu if e.name.startswith(_KERNEL_FLOPS)
+              for e in cpu if _kernel_flops(e)
               or (e.name in _FLOP_OPS and getattr(e, "flops", 0))]
     stage = _innermost(ranges, times)
     owner = _innermost(owners, times)
@@ -194,8 +220,7 @@ def rows_from_profiler(prof) -> list[dict]:
     # copies of the annotation ranges
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)
-              and not _is_stage(e)
-              and not e.name.startswith(_KERNEL_FLOPS)]
+              and not e.name.startswith(STAGE_RANGE)]
     # (stage, name, microseconds) records by the event that counts their
     # operations; each gets that count in proportion to its time
     owned: dict = defaultdict(list)
