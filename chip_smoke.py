@@ -25,7 +25,11 @@ of one machine (one is enough).
    the backward of F.scaled_dot_product_attention (autograd over a kept
    graph, its forward untimed) as the yardstick; their bound counts 10
    B H Sq Sk D flops, one exponential a score, and the bytes of q, k, v,
-   o, dO, dq, dk, dv and the log-sum-exp;
+   o, dO, dq, dk, dv and the log-sum-exp. SAM2's memory cross-attention
+   attends the bank's valid keys, so each occupancy the requests pass
+   through while the bank fills is an instance of its own: once the
+   requests have run, each such launched instance gets a row, checked
+   and timed the same way;
 3a. training: the DiffuEraser training step (`videovanish_tpu_torch.train`)
    at full width, the default config's UNet with motion modules and
    BrushNet (2.2 B parameters, seeded), remat, on one 22-frame clip of
@@ -462,6 +466,7 @@ SAM2_INSTANCES = (
     "flash_attn_fwd[D=72,Sq=256,Sk=256]", "flash_attn_fwd[D=72,Sq=4096,Sk=4096]",
     "flash_attn_fwd[D=72,Sq=64,Sk=256]", "flash_attn_fwd[D=16,Sq=22,Sk=4096]",
     "flash_attn_fwd[D=256,Sq=4096,Sk=4096]",
+    "flash_attn_fwd[D=256,Sq=4096,Sk=28736]",
     "small_seq_attn[tokenmajor,N=8192,D=72,S=64]",
     "small_seq_attn[tokenmajor,N=1024,D=72,S=64]",
     "small_seq_attn[tokenmajor,N=128,D=72,S=64]",
@@ -499,10 +504,12 @@ def kernel_cases():
     # stage-3 windows (16x16 tokens), global blocks, the stage-4 entry's
     # pooled queries over 16x16 windows; the mask decoder's token-to-image
     # attention (6 output + 16 prompt tokens, 8 heads of 16); memory
-    # self-attention (one 256-wide head)
+    # self-attention (one 256-wide head) and memory cross-attention over
+    # the full bank
     cases += [flash(128, 8, 256, 256, 72), flash(8, 8, 4096, 4096, 72),
               flash(128, 16, 64, 256, 72), flash(2, 8, 22, 4096, 16),
-              flash(2, 1, 4096, 4096, 256)]
+              flash(2, 1, 4096, 4096, 256),
+              flash(2, 1, 4096, BANK_FULL_KEYS, 256)]
     # the GUI's 22-frame infill preview at 1280x720 (360x640 inference,
     # 45x80 latents): levels 0-2 (3600, 920 and 240 tokens; text
     # cross-attention at level 2 is too short for flash) and the VAE's mid
@@ -583,6 +590,30 @@ def kernel_cases():
     return cases
 
 
+# memory cross-attention over the bank's valid keys: v spatial slots of
+# 4096 grid tokens, then 4 tokens a valid pointer (7 x 4096 + 64 when the
+# bank is full, kernel_cases()); while the bank fills, each occupancy the
+# requests reach is its own instance, and gets a row of its own
+BANK_SHAPE = re.compile(r"flash_attn_fwd\[D=256,Sq=4096,Sk=(\d+)\]")
+BANK_FULL_KEYS = 7 * 4096 + 16 * 4
+
+
+def bank_cases(names) -> list:
+    """kernel_cases() rows of the memory cross-attention instances among
+    `names` (launched kernel instances): Sk = v * 4096 + 4 * p keys for
+    1 <= v <= 7 valid slots and 0 <= p <= 16 valid pointers."""
+    cases = []
+    for name in sorted(names):
+        m = BANK_SHAPE.fullmatch(name)
+        if m is None:
+            continue
+        v, ptr_tokens = divmod(int(m.group(1)), 4096)
+        if 1 <= v <= 7 and ptr_tokens % 4 == 0 and ptr_tokens <= 64:
+            cases.append((name, f"{TPU_SRC}:120", "flash",
+                          (2, 1, 4096, int(m.group(1)), 256)))
+    return cases
+
+
 def kernel_case(route, shape, randn):
     """((B, H, Sq, Sk, D), make, kern, view, plain, lib, source) of one
     kernel_cases() row: make() draws q, k, v with randn as the main path
@@ -650,7 +681,7 @@ def kernel_case(route, shape, randn):
     return (N, heads, S, Sk, d), make, kern, view, plain, lib, SRC_SMALL
 
 
-def run_kernel_phase(ex2_per_s: float, seed: int = 0):
+def run_kernel_phase(ex2_per_s: float, seed: int = 0, cases=None):
     import torch
     from videovanish_tpu_torch.ops import attention as A
 
@@ -661,7 +692,8 @@ def run_kernel_phase(ex2_per_s: float, seed: int = 0):
         return torch.randn(*shape, generator=gen, device=dev, dtype=bf16)
 
     rows = []
-    for key, replaces, route, shape in kernel_cases():
+    for key, replaces, route, shape in (kernel_cases() if cases is None
+                                        else cases):
         (B, H, Sq, Sk, D), make, kern, view, plain, lib, src = kernel_case(
             route, shape, randn)
         # q, k, v and o bytes of one call; copies of the inputs that do not
@@ -3080,6 +3112,13 @@ def main(argv=None) -> int:
     counts_5, files_report = run_files_phase(launches_0, args.seed)
     counts_g, gui_report = run_gui_phase(args.seed)
     counts_4, weights_report = run_weights_phase(args.seed)
+    launched = (set(counts) | set(counts_2) | set(counts_3) | set(counts_4)
+                | set(counts_5) | set(counts_t) | set(counts_m)
+                | set(counts_g))
+    # SAM2's memory cross-attention at the occupancies the bank passed
+    # through while it filled, checked once the requests have shown them
+    rows += run_kernel_phase(ex2_per_s, args.seed, bank_cases(
+        launched - {r["name"] for r in rows}))
     for row in rows:
         # each instance is driven by the infill requests, by SAM2, by the
         # training step or by the GUI's jobs
@@ -3117,10 +3156,7 @@ def main(argv=None) -> int:
     if sam2_missing:
         raise RuntimeError(f"SAM2 kernel instances not launched by the SAM2 "
                            f"request: {sam2_missing}")
-    unchecked = sorted((set(counts) | set(counts_2) | set(counts_3)
-                        | set(counts_4) | set(counts_5) | set(counts_t)
-                        | set(counts_m) | set(counts_g))
-                       - {r["name"] for r in rows})
+    unchecked = sorted(launched - {r["name"] for r in rows})
     if unchecked:
         raise RuntimeError(f"main-path kernel instances without a "
                            f"kernel-phase check: {unchecked}")

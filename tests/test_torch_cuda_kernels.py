@@ -271,7 +271,10 @@ def test_kernels_refuse_bad_operands(gen):
 # SAM2's flash instances: D = 16 (the mask decoder's token-to-image
 # attention, 22 queries over 4096 image tokens; one consumer warpgroup,
 # 64-row query tiles, 128-key tiles) and D = 256 (memory self-attention,
-# one head; two warpgroups share 64 query rows, 64-key tiles)
+# one head; two warpgroups share 64 query rows, 64-key tiles; and memory
+# cross-attention over the bank's valid keys, v slots of 4096 grid tokens
+# then 4 tokens a pointer: 7 x 4096 + 64 when full, 4096 + 4 on the
+# second frame)
 def test_flash_sam2_query_tile_edges(gen):
     def check(D, Sq):
         B, H, Sk = (2, 8, 300) if D == 16 else (2, 1, 300)
@@ -282,12 +285,14 @@ def test_flash_sam2_query_tile_edges(gen):
 
 
 def test_flash_sam2_key_tile_edges(gen):
-    def check(D, Sk):
-        B, H, Sq = (2, 8, 22) if D == 16 else (1, 1, 100)
+    def check(D, Sk, B=None, H=1, Sq=100):
+        if B is None:
+            B, H, Sq = (2, 8, 22) if D == 16 else (1, 1, 100)
         _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
                      _randn(gen, B, H, Sk, D))
     _each([(D, Sk) for D in (16, 256)
-           for Sk in (1, 63, 64, 65, 127, 128, 129, 4097)], check)
+           for Sk in (1, 63, 64, 65, 127, 128, 129, 4097)]
+          + [(256, 28736, 2, 1, 4096), (256, 4100, 2, 1, 4096)], check)
 
 
 def test_flash_sam2_batch_heads(gen):
@@ -320,6 +325,7 @@ def test_flash_sam2_is_deterministic(gen):
         b = A.flash_attention(q, k, v, D ** -0.5)
         assert torch.equal(a, b)
     _each([(2, 8, 22, 4096, 16), (2, 1, 4096, 4096, 256),
+           (2, 1, 4096, 28736, 256), (2, 1, 4096, 4100, 256),
            (16, 16, 64, 256, 72)], check)
 
 

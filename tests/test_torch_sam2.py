@@ -67,9 +67,12 @@ def weights(seed: int = 0):
 
 
 @functools.lru_cache(maxsize=None)
+def port_predictor(seed: int = 0):
+    return Sam2VideoPredictor(CFG, params=weights(seed)[0], device="cpu")
+
+
 def port_model(seed: int = 0):
-    return Sam2VideoPredictor(CFG, params=weights(seed)[0],
-                              device="cpu").model
+    return port_predictor(seed).model
 
 
 def _close(got, want, rel=REL):
@@ -336,6 +339,42 @@ def test_memory_attention_matches_jax():
                            jnp.asarray(pos), jnp.asarray(valid))
     assert bool(torch.isfinite(got).all())
     _close(got, want)
+
+
+def test_compacted_memory_attention_equals_masked_bank():
+    """The predictor's memory attention over the bank's valid keys alone
+    (`_memory_tokens`: slices over the runs of valid slots and the RoPE
+    tables') equals memory attention over the whole bank with its validity
+    as the mask, for occupancies all objects share: one slot and one
+    pointer, slots with gaps between them (conditioning slots pinned while
+    tracked ones fall out of range), pointers alone, a full bank."""
+    pred = port_predictor()
+    rng = np.random.default_rng(15)
+    n, P, md = CFG.num_maskmem, CFG.max_obj_ptrs_in_encoder, CFG.mem_dim
+    O, T16, d = 2, pred.tokens16, CFG.neck_d_model
+    splits = d // md
+    feats = _t(rng.standard_normal((O, n, T16, md)).astype(np.float32))
+    ptrs = _t(rng.standard_normal((O, P * splits, md)).astype(np.float32))
+    x = _t(rng.standard_normal((O, T16, d)).astype(np.float32))
+    age = rng.permutation(n).astype(np.int32)
+    tdiff = rng.uniform(-1.0, 1.0, P).astype(np.float32)
+    kv_all, pos_all, _ = pred._memory_tokens(
+        feats, np.ones(n, bool), age, ptrs, np.ones(P, bool), tdiff)
+    assert kv_all.shape[1] == n * T16 + P * splits
+    for slots, pointers in (([0], [0]), ([0, 2, 3, 6], [0, 2, 3]),
+                            ([], [1, 3]), (range(n), range(P))):
+        valid = np.isin(np.arange(n), list(slots))
+        pvalid = np.isin(np.arange(P), list(pointers))
+        kv, pos, rope = pred._memory_tokens(feats, valid, age, ptrs, pvalid,
+                                            tdiff)
+        assert kv.shape[1] == valid.sum() * T16 + pvalid.sum() * splits
+        got = pred.model.memory_attention(x, pred._pos16, kv, pos, rope=rope)
+        mask = np.concatenate([np.repeat(valid, T16),
+                               np.repeat(pvalid, splits)])
+        want = pred.model.memory_attention(
+            x, pred._pos16, kv_all, pos_all,
+            torch.from_numpy(np.tile(mask, (O, 1))))
+        _close(got, want.numpy(), 1e-5)
 
 
 def test_memory_encoder_matches_jax():

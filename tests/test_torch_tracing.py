@@ -56,12 +56,15 @@ def test_sam2_request_opens_its_stage_ranges(tmp_path, monkeypatch):
     step's every aten op lies under exactly one of the four compute
     stages; fetches lie outside them; the host's colouring is
     masker.render. Under VV_PROFILE_DIR a call leaves a trace of its
-    own."""
+    own. Each sam2.step_dispatch record counts the memory keys its steps
+    attended and the whole bank's keys on those steps."""
     frames, ann = _scene()
     pinfill.set_config(tiny_config())
+    records = []
     try:
-        events = _cpu_profile(lambda: pmasker.run_sam2_on_frames(
-            frames, ann, device="cpu"))
+        with obs.collect_stages(records):
+            events = _cpu_profile(lambda: pmasker.run_sam2_on_frames(
+                frames, ann, device="cpu"))
         monkeypatch.setenv("VV_PROFILE_DIR", str(tmp_path))
         pmasker.run_sam2_on_frames(frames[:3], ann, device="cpu")
     finally:
@@ -93,6 +96,11 @@ def test_sam2_request_opens_its_stage_ranges(tmp_path, monkeypatch):
             assert sum(s in SAM2_COMPUTE for s in above) == 1, (e.name, above)
     assert steps > 0
     assert len(by_name["sam2.step_dispatch"]) == len(frames)
+    # the first chunk's bank fills (its first frame has none); the second
+    # chunk's is full
+    first, second = [f for n, _, f in records if n == "sam2.step_dispatch"]
+    assert 0 < first["mem_keys"] < first["mem_keys_bank"]
+    assert 0 < second["mem_keys"] == second["mem_keys_bank"]
     trace = [p.read_text() for p in tmp_path.glob("trace_*.json")]
     assert len(trace) == 1 and R + "sam2.memory_encode" in trace[0]
 

@@ -81,8 +81,11 @@ class Mlp(nn.Module):
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """flax.linen.gelu (the tanh form) in f32, dtype kept."""
-    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+    """flax.linen.gelu (the tanh form) in f32, dtype kept: torch's bf16
+    kernel computes in f32 and rounds once, so no f32 copy of x is made
+    (at Hiera's first stage, 8 frames, such a copy and its result set the
+    request's peak memory)."""
+    return F.gelu(x, approximate="tanh")
 
 
 class PatchEmbed(nn.Module):

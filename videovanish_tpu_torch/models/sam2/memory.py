@@ -2,16 +2,18 @@
 
 Port of videovanish_tpu/models/sam2/memory.py with the checkpoint's names
 (`memory_attention.*`, `memory_encoder.*`). The memory bank is a fixed set
-of slots (num_maskmem spatial slots, then the object-pointer tokens) with a
-validity mask, so every frame has the same shapes:
+of slots (num_maskmem spatial slots, then the object-pointer tokens), of
+which a frame attends the valid ones:
 
   - memory attention: pre-LN layers of RoPE self-attention (one 256-wide
     head over the 64x64 tokens: the flash kernel's D = 256 instance),
     RoPE cross-attention to the memory (keys and values projected 64 ->
-    256; invalid slots masked, so it takes the plain path with the finite
-    -1e30 fill: a bank with no valid key gives a uniform softmax, which the
-    predictor discards), and a ReLU MLP. Pointer tokens get zero rotation
-    angles;
+    256), and a ReLU MLP. Pointer tokens get zero rotation angles. The
+    predictor passes only the bank's valid keys (`bank_rope` gives their
+    rotations), so the cross-attention takes the flash kernel's D = 256
+    instance too. A caller may instead pass the whole bank with a validity
+    mask: that call takes the plain path with the finite -1e30 fill, and a
+    bank with no valid key gives a uniform softmax;
   - memory encoder: the image-resolution mask downsampled 16x by four
     stride-2 conv + LayerNorm + GELU layers and a 1x1 conv, added to the
     projected stride-16 features, fused by two ConvNeXt blocks, projected
@@ -107,6 +109,21 @@ def _rope_tables(S: int, M: int, head_dim: int, device: torch.device):
     return dev(sin_s, cos_s), dev(sin_m, cos_m)
 
 
+def bank_rope(S: int, slots: int, ptr_tokens: int, kept_slots: int,
+              kept_ptr_tokens: int, head_dim: int, device):
+    """(rope_self, rope_mem) of a bank compacted to `kept_slots` spatial
+    slots of S grid tokens, then `kept_ptr_tokens` pointer tokens: slices
+    of the whole bank's tables (`slots` slots, `ptr_tokens` pointer tokens),
+    which are made and uploaded once, however the occupancy changes."""
+    rope_self, full = _rope_tables(S, slots * S + ptr_tokens, head_dim,
+                                   torch.device(device))
+    if full is None:
+        return None, None
+    grid, ptr = kept_slots * S, slots * S
+    return rope_self, tuple(torch.cat([t[:grid], t[ptr:ptr + kept_ptr_tokens]])
+                            for t in full)
+
+
 class MemoryAttention(nn.Module):
     def __init__(self, num_layers: int = 4, d_model: int = 256,
                  kv_dim: int = 64, mlp_dim: int = 2048):
@@ -116,13 +133,15 @@ class MemoryAttention(nn.Module):
                                     for _ in range(num_layers))
         self.norm = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x, x_pos, mem_kv, mem_pos, mem_valid):
+    def forward(self, x, x_pos, mem_kv, mem_pos, mem_valid=None, rope=None):
         """x: (B, S, d_model) stride-16 tokens of the current frame; x_pos:
         (1|B, S, d_model) sine encoding (added once, scaled by 0.1);
-        mem_kv / mem_pos: (B, M, kv_dim) memory tokens (spatial slots, then
-        pointer tokens); mem_valid: (B, M) bool."""
-        rope_self, rope_mem = _rope_tables(x.shape[1], mem_kv.shape[1],
-                                           x.shape[2], x.device)
+        mem_kv / mem_pos: (B|1, M, kv_dim) memory tokens (spatial slots, then
+        pointer tokens); mem_valid: None (every key attended) or (B, M)
+        bool; rope: (rope_self, rope_mem), by default the tables of whole
+        S-token slots followed by zero-angle pointer tokens."""
+        rope_self, rope_mem = rope or _rope_tables(
+            x.shape[1], mem_kv.shape[1], x.shape[2], x.device)
         x = x + 0.1 * x_pos.to(x.dtype)
         for layer in self.layers:
             x = layer(x, mem_kv, mem_pos, mem_valid, rope_self, rope_mem)

@@ -15,9 +15,10 @@ surface:
 Objects ride a leading batch axis; each frame is encoded once and shared.
 The memory bank is fixed-size per object: num_maskmem spatial slots
 (conditioning frames pinned, tracked frames ring-evicted) and
-max_obj_ptrs_in_encoder pointer slots, invalid slots masked in attention.
-The bank lives on the model's device and is updated in place; its
-occupancy is host metadata (`_BankMeta`), shared by all objects. Frames are
+max_obj_ptrs_in_encoder pointer slots. The bank lives on the model's
+device and is updated in place; its occupancy is host metadata
+(`_BankMeta`), shared by all objects, so memory attention reads the valid
+slots alone, as slices over their runs (`_memory_tokens`). Frames are
 encoded ENCODE_CHUNK at a time (the last chunk is not padded: frames are
 independent in Hiera), then stepped one by one in a Python loop; the JAX
 package fuses a chunk's steps into one `lax.scan` and bit-packs binary
@@ -29,7 +30,9 @@ logits and memory bank; on the CPU everything is f32.
 Propagation records the JAX package's stages per encode chunk
 (`utils/observability.py`): sam2.wire_prep (stacking and the I420
 conversion on the host), sam2.encode_dispatch, sam2.step_dispatch (the
-chunk's steps) and sam2.fetch (the masks to the host). Their seconds read
+chunk's steps, with `mem_keys`, the memory keys attended, and
+`mem_keys_bank`, the whole bank's keys on the same steps) and sam2.fetch
+(the masks to the host). Their seconds read
 the host clock, so device time bills to sam2.fetch, where the host waits;
 under VV_LOG on the card each also gives the device's time.
 
@@ -60,7 +63,7 @@ from videovanish_tpu_torch.convert import published_state_dict
 from videovanish_tpu_torch.models.sam2.decoder import MaskDecoder
 from videovanish_tpu_torch.models.sam2.hiera import Hiera, Mlp
 from videovanish_tpu_torch.models.sam2.memory import (
-    CXBlock, MemoryAttention, MemoryEncoder,
+    CXBlock, MemoryAttention, MemoryEncoder, bank_rope,
 )
 from videovanish_tpu_torch.models.sam2.neck import FpnNeck, sine_pos_embed_2d
 from videovanish_tpu_torch.models.sam2.prompt import MAX_POINTS, PromptEncoder
@@ -136,6 +139,13 @@ def _init_random_(model: Sam2Model, gen: torch.Generator) -> None:
     for p in (model.no_mem_embed, model.no_obj_ptr,
               model.no_obj_embed_spatial):
         p.zero_()
+
+
+def _runs(valid) -> list:
+    """(start, stop) of each run of True in a 1-D bool array."""
+    edges = np.flatnonzero(np.diff(np.concatenate(
+        [[0], np.asarray(valid, np.int8), [0]])))
+    return list(zip(edges[::2].tolist(), edges[1::2].tolist()))
 
 
 class _BankMeta:
@@ -306,54 +316,82 @@ class Sam2VideoPredictor:
         with trace_annotation("sam2.encode"):
             return self.encode(yuv420_to_rgb01(self._upload(yuv_u8)))
 
+    def _memory_tokens(self, mem_feats, mem_valid, mem_age, ptr_feats,
+                       ptr_valid, ptr_tdiff):
+        """The bank's valid keys: (kv (O, M, mem) in the networks' dtype,
+        pos (1, M, mem) f32, rope) with M = v*T16 + p*splits, the v valid
+        spatial slots in slot order, then the tokens of the p valid pointer
+        slots; None where no slot is valid. The arguments are as `decode`
+        takes them. Validity is host numpy, so kv is taken as slices over
+        the runs of valid slots: no index goes to the device and nothing
+        waits for it."""
+        cfg, m = self.cfg, self.model
+        n, T16, md = cfg.num_maskmem, self.tokens16, cfg.mem_dim
+        d = cfg.neck_d_model
+        splits = d // md
+        O = mem_feats.shape[0]
+        mem_valid = np.asarray(mem_valid, bool)
+        ptr_valid = np.asarray(ptr_valid, bool)
+        v, p = int(mem_valid.sum()), int(ptr_valid.sum())
+        if not v + p:
+            return None
+        kv = [mem_feats[:, a:b].reshape(O, (b - a) * T16, md)
+              for a, b in _runs(mem_valid)]
+        kv += [ptr_feats[:, a * splits:b * splits]
+               for a, b in _runs(ptr_valid)]
+        pos = []
+        if v:
+            # spatial slots: the sine grid plus each slot's temporal encoding
+            tpos = m.maskmem_tpos_enc.reshape(n, md)[
+                self._upload(np.asarray(mem_age)[mem_valid]).long()]
+            pos.append((self._mem_spatial_pos + tpos[:, None]).reshape(
+                v * T16, md))
+        if p:
+            # pointer tokens: the projected sine encoding of their
+            # normalised temporal offsets
+            pe_dim = d // 2
+            dim_t = 10000.0 ** (2.0 * (torch.arange(
+                pe_dim, device=self.device) // 2).float() / pe_dim)
+            ang = self._upload(np.asarray(ptr_tdiff, np.float32)[
+                ptr_valid])[:, None] / dim_t
+            sine_pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+            pos.append(m.obj_ptr_tpos_proj(sine_pe).repeat_interleave(
+                splits, dim=0))
+        rope = bank_rope(T16, n, cfg.max_obj_ptrs_in_encoder * splits, v,
+                         p * splits, cfg.memory_attention_d_model,
+                         self.device)
+        return torch.cat(kv, dim=1).to(self.dtype), \
+            torch.cat(pos, dim=0)[None], rope
+
     def decode(self, f16, f4, f8, mem_feats, mem_valid, mem_age, ptr_feats,
                ptr_valid, ptr_tdiff, points, labels, H0: int, W0: int):
         """Memory attention and the mask decoder, batched over objects O.
         f16/f4/f8: (1, ...) shared features; mem_feats (O, n, T16, mem) and
-        ptr_feats (O, P*splits, mem): the bank; mem_valid, mem_age (O, n),
-        ptr_valid (O, P*splits), ptr_tdiff (O, P), points (O, MAX_POINTS, 2),
-        labels (O, MAX_POINTS): host numpy arrays. Returns (low-res masks
-        (O, 4*s16, 4*s16, 1), logits at (H0, W0), object pointers, the
-        conditioned stride-16 features, object scores)."""
+        ptr_feats (O, P*splits, mem): the bank; the occupancy all objects
+        share as host numpy: mem_valid, mem_age (n,), ptr_valid, ptr_tdiff
+        (P,); points (O, MAX_POINTS, 2), labels (O, MAX_POINTS): host numpy
+        arrays. Returns (low-res masks (O, 4*s16, 4*s16, 1), logits at
+        (H0, W0), object pointers, the conditioned stride-16 features,
+        object scores, the number of memory keys attended)."""
         cfg, m = self.cfg, self.model
         dev, dt = self.device, self.dtype
-        d, n, T16 = cfg.neck_d_model, cfg.num_maskmem, self.tokens16
+        d, T16 = cfg.neck_d_model, self.tokens16
         O = mem_feats.shape[0]
-        splits = d // cfg.mem_dim
         up = self._upload
 
         with trace_annotation("sam2.memory_attention"):
             x = f16.reshape(1, T16, d).expand(O, T16, d).to(dt)
-            no_mem = x + m.no_mem_embed.to(dt)
-            any_mem = np.asarray(mem_valid).any(1) | \
-                np.asarray(ptr_valid).any(1)
-            if any_mem.any():
-                # memory kv: spatial slots with their temporal encodings,
-                # then the pointer tokens with the projected sine encoding
-                # of their normalised temporal offsets
-                tpos = m.maskmem_tpos_enc.reshape(n, cfg.mem_dim)[
-                    up(mem_age).long()]
-                pos_sp = (self._mem_spatial_pos[None, None]
-                          + tpos[:, :, None, :]).reshape(O, n * T16,
-                                                         cfg.mem_dim)
-                pe_dim = d // 2
-                dim_t = 10000.0 ** (2.0 * (torch.arange(pe_dim, device=dev)
-                                           // 2).float() / pe_dim)
-                ang = up(ptr_tdiff)[..., None] / dim_t
-                sine_pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
-                ptr_pos = m.obj_ptr_tpos_proj(sine_pe).repeat_interleave(
-                    splits, dim=1)
-                kv = torch.cat([mem_feats.reshape(O, n * T16, cfg.mem_dim),
-                                ptr_feats], dim=1).to(dt)
-                pos = torch.cat([pos_sp, ptr_pos], dim=1)
-                valid = torch.cat([up(mem_valid).repeat_interleave(T16, dim=1),
-                                   up(ptr_valid)], dim=1)
-                cond = m.memory_attention(x, self._pos16, kv, pos, valid)
+            mem = self._memory_tokens(mem_feats, mem_valid, mem_age,
+                                      ptr_feats, ptr_valid, ptr_tdiff)
+            if mem is None:
                 # a frame with no memory takes the learned no-memory
                 # embedding
-                x = torch.where(up(any_mem)[:, None, None], cond, no_mem)
+                x = x + m.no_mem_embed.to(dt)
+                mem_keys = 0
             else:
-                x = no_mem
+                kv, pos, rope = mem
+                x = m.memory_attention(x, self._pos16, kv, pos, rope=rope)
+                mem_keys = kv.shape[1]
 
         with trace_annotation("sam2.decode"):
             x = x.reshape(O, self.s16, self.s16, d)
@@ -389,18 +427,19 @@ class Sam2VideoPredictor:
             masks = masks[..., None]
             logits = resize_bilinear(masks, H0, W0)[..., 0]
             self._stage("decode", logits)
-        return masks, logits, obj_ptr, x, out["obj_score"]
+        return masks, logits, obj_ptr, x, out["obj_score"], mem_keys
 
     def step(self, f16, f4, f8, bank_feats, bank_ptrs, mem_valid, mem_age,
              ptr_valid, ptr_tdiff, points, labels, write_slot: int,
              ptr_slot: int, binarize: bool, H0: int, W0: int):
         """One propagation step: decode, encode the new memory, and write it
         and the object pointer into the bank (in place). Returns the
-        logits at (H0, W0)."""
+        logits at (H0, W0) and the number of memory keys attended."""
         cfg = self.cfg
-        masks_s4, logits, obj_ptr, cond_f16, obj_score = self.decode(
-            f16, f4, f8, bank_feats, mem_valid, mem_age, bank_ptrs, ptr_valid,
-            ptr_tdiff, points, labels, H0, W0)
+        masks_s4, logits, obj_ptr, cond_f16, obj_score, mem_keys = \
+            self.decode(f16, f4, f8, bank_feats, mem_valid, mem_age,
+                        bank_ptrs, ptr_valid, ptr_tdiff, points, labels, H0,
+                        W0)
         with trace_annotation("sam2.memory_encode"):
             # the image-resolution mask, binarised on prompted frames, else
             # a sigmoid, scaled by 20 and biased by -10
@@ -419,7 +458,7 @@ class Sam2VideoPredictor:
                                                          cfg.mem_dim)
             bank_ptrs[:, ptr_slot * splits:(ptr_slot + 1) * splits] = \
                 obj_ptr.float().reshape(-1, splits, cfg.mem_dim)
-        return logits
+        return logits, mem_keys
 
     def _empty_bank(self, O: int):
         cfg = self.cfg
@@ -517,20 +556,6 @@ class Sam2VideoPredictor:
                 labels[oi, :n] = np.asarray(e["labels"][:n], np.int32)
         return points, labels
 
-    def _meta_arrays(self, meta: _BankMeta, cur_frame: int, O: int,
-                     reverse: bool = False, num_total_frames: int = 0):
-        """Shared occupancy broadcast to per-object numpy arrays."""
-        splits = self.cfg.neck_d_model // self.cfg.mem_dim
-        valid, age = meta.valid_age(cur_frame)
-        pvalid, tdiff = meta.ptr_valid_tdiff(cur_frame, reverse,
-                                             num_total_frames)
-        pvalid_tok = np.repeat(pvalid, splits)
-
-        def bc(a):
-            return np.broadcast_to(a, (O,) + a.shape)
-
-        return bc(valid), bc(age), bc(pvalid_tok), bc(tdiff)
-
     def _predict_prompt_frame(self, state, frame_idx):
         """Memoryless single-frame decode: (O, H0, W0) f32 logits."""
         O = len(state["obj_ids"])
@@ -538,7 +563,8 @@ class Sam2VideoPredictor:
         feats, ptrs = self._empty_bank(O)
         meta = _BankMeta(self.cfg.num_maskmem,
                          self.cfg.max_obj_ptrs_in_encoder)
-        valid, age, pvalid, tdiff = self._meta_arrays(meta, frame_idx, O)
+        valid, age = meta.valid_age(frame_idx)
+        pvalid, tdiff = meta.ptr_valid_tdiff(frame_idx, False, 0)
         points, labels = self._prompt_arrays(state, frame_idx)
         logits = self.decode(f16, f4, f8, feats, valid, age, ptrs, pvalid,
                              tdiff, points, labels, state["H0"],
@@ -586,6 +612,8 @@ class Sam2VideoPredictor:
         no_points = np.zeros((O, MAX_POINTS, 2), np.float32)
         no_labels = np.full((O, MAX_POINTS), -1, np.int32)
         steps, fetches = StageSum("sam2.step_dispatch"), StageSum("sam2.fetch")
+        splits = self.cfg.neck_d_model // self.cfg.mem_dim
+        bank_keys = meta.num_maskmem * self.tokens16 + meta.max_ptrs * splits
         for pos in range(0, len(idxs), ENCODE_CHUNK):
             sel = idxs[pos:pos + ENCODE_CHUNK]
             with stage_timer("sam2.wire_prep", frames=len(sel)) as rec:
@@ -595,27 +623,31 @@ class Sam2VideoPredictor:
             with stage_timer("sam2.encode_dispatch", frames=len(sel)):
                 f4c, f8c, f16c = (self.encode_yuv(wire) if use_yuv
                                   else self.encode_rgb(wire))
+            keys = keys_bank = 0
             for j, t in enumerate(sel):
                 # occupancy before this frame writes, as one step at a time
                 is_cond = t in state["prompts"]
-                valid, age, pvalid, tdiff = self._meta_arrays(
-                    meta, t, O, reverse=reverse, num_total_frames=T)
+                valid, age = meta.valid_age(t)
+                pvalid, tdiff = meta.ptr_valid_tdiff(t, reverse, T)
                 points, labels = self._prompt_arrays(state, t) if is_cond \
                     else (no_points, no_labels)
                 ws = meta.choose_slot(t, is_cond)
                 ps = meta.choose_ptr_slot(t, is_cond)
                 f16, f4, f8 = f16c[j:j + 1], f4c[j:j + 1], f8c[j:j + 1]
                 with steps.span():
-                    out = self.step(f16, f4, f8, feats, ptrs, valid, age,
-                                    pvalid, tdiff, points, labels, ws, ps,
-                                    is_cond, H0, W0)
+                    out, kept = self.step(f16, f4, f8, feats, ptrs, valid,
+                                          age, pvalid, tdiff, points, labels,
+                                          ws, ps, is_cond, H0, W0)
+                    keys += kept
+                    keys_bank += bank_keys if kept else 0
                     if yield_binary:
                         with trace_annotation("sam2.decode"):
                             out = (out > 0).to(torch.uint8)
                 with fetches.span():
                     out = out.cpu().numpy()
                 yield t, obj_ids, [out[i] for i in range(O)]
-            steps.record(frames=len(sel))
+            steps.record(frames=len(sel), mem_keys=keys,
+                         mem_keys_bank=keys_bank)
             fetches.record(frames=len(sel))
 
 
