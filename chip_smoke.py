@@ -165,10 +165,19 @@ of one machine (one is enough).
    seconds (write, read, to the card; the CLI's read, merge and write),
    the CLIP encode ms, the requests' wall and peak memory; deletes the
    files;
+8a. Wan2.1-VACE: `run_infill_on_frames` with `infill.model = "vace"` at
+   the published widths (seeded weights) on 81 frames at 1280x720
+   (832x464 inference: 21 x 29 x 52 = 31668 tokens), 4 sampler steps as
+   the benchmark's cell runs it, cold and then warm. Checks finite final
+   latents, the output shape and pixels outside the feathered mask equal
+   to the input; prints each run's wall, the warm run's stages (VAE
+   encode, each step, VAE decode) and peak memory. `--only wan` runs the
+   build, the Wan rows of the kernel phase and this phase alone;
 9. prints one {"kernels": [...]} line, the card line, and last
    {"ok": true, "device": {...}}. A kernel row's `launches` counts the two
    requests with the prior passed in, the SAM2 request, the training
-   phase and the GUI's jobs (each instance is launched by one of them;
+   phase, the GUI's jobs and the Wan request (each instance is launched
+   by one of them;
    `launches_train_phase`, `launches_gui_phase`, `launches_prior_request`,
    `launches_sam2_request`, `launches_files_phase` (the chunked CLI run),
    `launches_weights_phase` and `launches_mesh_phase` give the other runs
@@ -577,6 +586,7 @@ def kernel_cases():
         ("small_seq_attn[bhsd,N=6144,D=72,S=16]", pk, "packed",
          (6144, 16, 288, 4, 64)),
     ]
+    cases += wan_kernel_cases()
     # the training phase's forward instances that inference does not launch
     known = {c[0] for c in cases}
     for fwd, _, route, shape in train_cases():
@@ -588,6 +598,80 @@ def kernel_cases():
             cases.append((fwd, tm if route == "tokenmajor" else pk, route,
                           shape))
     return cases
+
+
+def wan_kernel_cases():
+    """Wan2.1-VACE at 832x464 and 81 frames (21 x 29 x 52 = 31668 tokens),
+    beyond the JAX package (it replaces no TPU kernel): the DiT's
+    self-attention and cross-attention to the 512 text rows, the prompt
+    and the negative prompt batched (12 heads of 128), and the Wan-VAE's
+    mid-block (one 384-wide head over a latent frame's 58 x 104 pixels)."""
+    return [(f"flash_attn_fwd[D={D},Sq={Sq},Sk={Sk}]", "none (Wan)",
+             "flash", (B, H, Sq, Sk, D))
+            for B, H, Sq, Sk, D in ((2, 12, WAN_TOKENS, WAN_TOKENS, 128),
+                                    (2, 12, WAN_TOKENS, 512, 128),
+                                    (1, 1, 6032, 6032, 384))]
+
+
+WAN_TOKENS = 21 * 29 * 52
+WAN_CLIP = (81, 720, 1280)
+WAN_STEPS = 4
+
+
+def run_wan_request(seed: int = 0):
+    """Phase 8a: (launch counts of the warm request, report)."""
+    import numpy as np
+    import torch
+    from videovanish_tpu_torch.config import default_config
+    from videovanish_tpu_torch.ops import attention as A
+    from videovanish_tpu_torch.pipeline import infill
+    from videovanish_tpu_torch.utils.observability import collect_stages
+
+    base = default_config()
+    cfg = dataclasses.replace(
+        base, wan=dataclasses.replace(base.wan, sample_steps=WAN_STEPS),
+        infill=dataclasses.replace(base.infill, model="vace"))
+    infill.set_config(cfg)
+    t0 = time.perf_counter()
+    model = infill.get_wan("cuda")
+    torch.cuda.synchronize()
+    print(f"[wan] model built on the card in {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    latents = []
+    model.latent_hook = latents.append
+    frames, masks, _ = synthetic_request(*WAN_CLIP, seed)
+    walls = []
+    for run in ("cold", "warm"):
+        latents.clear()
+        A.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        stages = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collect_stages(stages):
+            out = infill.run_infill_on_frames(list(frames), list(masks),
+                                              device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        print(f"[wan] {run}: {walls[-1]:.2f} s", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = dict(A.LAUNCHES)
+    z, change = check_request(out, frames, masks, latents, cfg)
+    split = {}
+    for name, secs, fields in stages:
+        split[name] = split.get(name, 0.0) + secs
+    report = {"frames": list(WAN_CLIP), "steps": WAN_STEPS,
+              "latents": list(z.shape), "walls_s": walls,
+              "peak_gib": peak, "stages_s": split,
+              "latent_absmax": float(z.abs().max()),
+              "inside_mean_abs_change": change}
+    print(f"[wan] warm stages {json.dumps(split)}, peak {peak:.2f} GiB, "
+          f"launches {json.dumps(counts, sort_keys=True)}", flush=True)
+    infill.set_config(default_config())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, report
 
 
 # memory cross-attention over the bank's valid keys: v spatial slots of
@@ -3060,6 +3144,9 @@ def run_weights_phase(seed: int = 0):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=["wan"],
+                    help="wan: the build, the Wan rows of the kernel phase "
+                         "and the Wan request alone")
     args = ap.parse_args(argv)
 
     import torch
@@ -3100,6 +3187,19 @@ def main(argv=None) -> int:
     check_small_seq_sass(built["small_seq_attn"])
     check_bwd_sass(built)
 
+    if args.only == "wan":
+        rows = run_kernel_phase(ex2_per_s, args.seed, wan_kernel_cases())
+        counts_w, wan_report = run_wan_request(args.seed)
+        for row in rows:
+            row["launches"] = counts_w.get(row["name"], 0)
+        missing = [r["name"] for r in rows if not r["launches"]]
+        if missing:
+            raise RuntimeError(f"Wan rows not launched by the request: "
+                               f"{missing}")
+        print(json.dumps({"kernels": rows, "wan_phase": wan_report}))
+        print(card)
+        return 0
+
     rows = run_kernel_phase(ex2_per_s, args.seed)
     bwd_rows = run_backward_rows(ex2_per_s, args.seed)
     counts_t, train_report = run_train_phase(args.seed)
@@ -3112,9 +3212,10 @@ def main(argv=None) -> int:
     counts_5, files_report = run_files_phase(launches_0, args.seed)
     counts_g, gui_report = run_gui_phase(args.seed)
     counts_4, weights_report = run_weights_phase(args.seed)
+    counts_w, wan_report = run_wan_request(args.seed)
     launched = (set(counts) | set(counts_2) | set(counts_3) | set(counts_4)
                 | set(counts_5) | set(counts_t) | set(counts_m)
-                | set(counts_g))
+                | set(counts_g) | set(counts_w))
     # SAM2's memory cross-attention at the occupancies the bank passed
     # through while it filled, checked once the requests have shown them
     rows += run_kernel_phase(ex2_per_s, args.seed, bank_cases(
@@ -3124,7 +3225,7 @@ def main(argv=None) -> int:
         # training step or by the GUI's jobs
         row["launches"] = counts.get(row["name"], 0) + \
             counts_3.get(row["name"], 0) + counts_t.get(row["name"], 0) + \
-            counts_g.get(row["name"], 0)
+            counts_g.get(row["name"], 0) + counts_w.get(row["name"], 0)
         row["launches_prior_request"] = counts_2.get(row["name"], 0)
         row["launches_sam2_request"] = counts_3.get(row["name"], 0)
         row["launches_weights_phase"] = counts_4.get(row["name"], 0)
@@ -3173,7 +3274,8 @@ def main(argv=None) -> int:
                       "train_phase": train_report,
                       "weights_phase": weights_report,
                       "files_phase": files_report,
-                      "gui_phase": gui_report}))
+                      "gui_phase": gui_report,
+                      "wan_phase": wan_report}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

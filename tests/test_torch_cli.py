@@ -25,7 +25,8 @@ from videovanish_tpu_torch.cli import compare as pcompare
 from videovanish_tpu_torch.cli import diffuerase as pdiffuerase
 from videovanish_tpu_torch.cli import sam2_masker as psam2_masker
 from videovanish_tpu_torch.config import (
-    DiffuEraserConfig, ProPainterConfig, VVConfig, tiny_config,
+    DiffuEraserConfig, InfillConfig, ProPainterConfig, VVConfig, tiny_config,
+    tiny_wan_config,
 )
 from videovanish_tpu_torch.models.diffueraser.model import DiffuEraser
 from videovanish_tpu_torch.pipeline import infill as pinfill
@@ -47,8 +48,16 @@ def _actions(parser):
 
 
 def test_parsers_match_jax():
+    """Flag for flag the JAX CLIs', and the port's diffuerase adds --model
+    (its remover), last, defaulting to the JAX package's one."""
     for port, ref in CLIS:
-        assert _actions(port.build_parser()) == _actions(ref.build_parser())
+        got = _actions(port.build_parser())
+        if port is pdiffuerase:
+            assert got[-1] == ("model", "diffueraser", False,
+                               ["diffueraser", "vace"], None, None,
+                               ("--model",))
+            got = got[:-1]
+        assert got == _actions(ref.build_parser())
         assert port.build_parser().description == \
             ref.build_parser().description
 
@@ -154,7 +163,9 @@ def test_cli_files_and_stage_log(tmp_path, monkeypatch, stage_lines):
     The VV_LOG=json lines are the JAX package's: {"event": "stage",
     "name", "seconds", ...fields}, with DiffuEraser's stage names; under
     VV_PROFILE_DIR a call leaves one torch.profiler trace with its stages
-    named."""
+    named. With --model vace the file holds what the "vace" route gives
+    (its stages logged, each sampler step's record with its counters);
+    --chunked on and a prior video are refused there."""
     monkeypatch.setenv("VV_PLATFORM", "cpu")
     params, noise, frames, masks, prior = _scene(**ONE_LEVEL)
     masks3 = np.repeat(masks[..., None], 3, -1)
@@ -219,3 +230,35 @@ def test_cli_files_and_stage_log(tmp_path, monkeypatch, stage_lines):
     assert {"sam2.wire_prep", "sam2.encode_dispatch", "sam2.step_dispatch",
             "sam2.fetch"} <= {json.loads(line).get("name")
                               for line in stage_lines}
+
+    stage_lines.clear()
+    out = str(tmp_path / "vace.mkv")
+    wcfg = tiny_wan_config()
+    pinfill.set_config(VVConfig(wan=wcfg))
+    try:
+        pdiffuerase.main(["--color_video", paths["color"], "--mask_video",
+                          paths["mask"], "--model", "vace", "--out", out,
+                          "--max_img_size", str(H)])
+        want = pinfill.run_infill_on_frames(list(frames), list(masks3),
+                                            max_img_size=H, device="cpu")
+        with pytest.raises(SystemExit, match="one pass"):
+            pdiffuerase.main(["--color_video", paths["color"],
+                              "--mask_video", paths["mask"], "--model",
+                              "vace", "--chunked", "on"])
+        with pytest.raises(ValueError, match="no prior"):
+            pdiffuerase.main(["--color_video", paths["color"],
+                              "--mask_video", paths["mask"], "--model",
+                              "vace", "--prior_video", paths["prior"]])
+    finally:
+        pinfill.set_config(VVConfig())
+    assert pinfill._get_config().infill == InfillConfig()
+    got, _ = pio.load_video_frames_from_path(out)
+    np.testing.assert_array_equal(np.stack(got), np.stack(want))
+    records = [json.loads(line) for line in stage_lines]
+    assert {"mask_dilate", "wan_denoise", "wan.vae_encode", "wan.step",
+            "wan.vae_decode", "rescale_composite"} <= \
+        {r["name"] for r in records}
+    steps = [r for r in records if r["name"] == "wan.step"]
+    assert len(steps) == 2 * wcfg.sample_steps
+    assert {(r["ctx_len"], r["branches"], r["vace_blocks"])
+            for r in steps} == {(wcfg.text_len, 2, len(wcfg.vace_layers))}

@@ -66,27 +66,31 @@ def test_flash_matches_plain(gen):
            # the training step under a "model" split of 2 and 4: 8 / model
            # heads at the 40x40 latents' levels (self and text attention)
            (2, 4, 1600, 1600, 40), (2, 2, 1600, 77, 40),
-           (2, 4, 400, 77, 80), (2, 2, 400, 400, 80)], check)
+           (2, 4, 400, 77, 80), (2, 2, 400, 400, 80),
+           # Wan's DiT (12 heads of 128: self-attention, cross-attention
+           # to 512 text rows) and its VAE's mid-block (one 384-wide head)
+           (2, 12, 1300, 1300, 128), (2, 12, 1000, 512, 128),
+           (1, 1, 6032, 6032, 384), (3, 1, 700, 500, 384)], check)
 
 
 # the flash kernel's tile edges: 64 query rows per consumer warpgroup, 192
-# per CTA at D = 40, 128 at D = 80/160, 64 at D = 512; key tiles of 128
-# (D <= 80) or 64 (D = 160, 512)
+# per CTA at D = 40, 128 at D = 80/128/160, 64 at D = 384/512; key tiles of
+# 128 (D <= 128) or 64 (D = 160, 384, 512)
 def test_flash_query_tile_edges(gen):
     def check(D, Sq):
-        B, H, Sk = (2, 3, 90) if D < 512 else (1, 1, 90)
+        B, H, Sk = (2, 3, 90) if D < 384 else (1, 1, 90)
         _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
                      _randn(gen, B, H, Sk, D))
-    _each([(D, Sq) for D in (40, 160, 512)
+    _each([(D, Sq) for D in (40, 128, 160, 384, 512)
            for Sq in (1, 63, 64, 65, 127, 128, 129, 191, 192, 193)], check)
 
 
 def test_flash_key_tile_edges(gen):
     def check(D, Sk):
-        B, H, Sq = (1, 2, 150) if D < 512 else (1, 1, 70)
+        B, H, Sq = (1, 2, 150) if D < 384 else (1, 1, 70)
         _flash_check(_randn(gen, B, H, Sq, D), _randn(gen, B, H, Sk, D),
                      _randn(gen, B, H, Sk, D))
-    _each([(D, Sk) for D in (40, 80, 512)
+    _each([(D, Sk) for D in (40, 80, 128, 384, 512)
            for Sk in (1, 2, 63, 64, 65, 100, 127, 128, 129, 257)], check)
 
 
@@ -100,7 +104,8 @@ def test_flash_last_head_of_token_major_storage(gen):
         def view(S):
             return _randn(gen, B, S, H + 1, D)[:, :, :H].permute(0, 2, 1, 3)
         _flash_check(view(Sq), view(Sk), view(Sk))
-    _each([(D,) for D in (40, 72, 80, 152, 160, 504, 512)], check)
+    _each([(D,) for D in (40, 72, 80, 128, 152, 160, 384, 504, 512)],
+          check)
 
 
 def test_flash_rows_far_below_the_rest(gen):
@@ -115,7 +120,7 @@ def test_flash_rows_far_below_the_rest(gen):
         q[:, :, :5] -= 6 * u
         q[:, :, 7] += 6 * u
         _flash_check(q, k, _randn(gen, B, H, Sk, D))
-    _each([(D,) for D in (40, 160, 512)], check)
+    _each([(D,) for D in (40, 128, 160, 384, 512)], check)
 
 
 def test_small_seq_matches_plain(gen):
@@ -130,16 +135,18 @@ def test_small_seq_matches_plain(gen):
           check)
 
 
-@pytest.mark.parametrize("N,S,heads,d", [(40, 22, 8, 40), (10, 64, 2, 72)])
-def test_tokenmajor_matches_plain(gen, N, S, heads, d):
-    q, k, v = (_randn(gen, N, S, heads * d) for _ in range(3))
-    got = A.small_seq_attention_tokenmajor(q, k, v, heads, d ** -0.5)
+def test_tokenmajor_matches_plain(gen):
+    def check(N, S, heads, d):
+        q, k, v = (_randn(gen, N, S, heads * d) for _ in range(3))
+        got = A.small_seq_attention_tokenmajor(q, k, v, heads, d ** -0.5)
 
-    def split(t):
-        return t.view(N, S, heads, d).permute(0, 2, 1, 3).float()
+        def split(t):
+            return t.view(N, S, heads, d).permute(0, 2, 1, 3).float()
 
-    ref = A.small_seq_attention_ref(split(q), split(k), split(v), d ** -0.5)
-    _close(got.view(N, S, heads, d).permute(0, 2, 1, 3), ref)
+        ref = A.small_seq_attention_ref(split(q), split(k), split(v),
+                                        d ** -0.5)
+        _close(got.view(N, S, heads, d).permute(0, 2, 1, 3), ref)
+    _each([(40, 22, 8, 40), (10, 64, 2, 72)], check)
 
 
 def _small_check(q, k, v):
@@ -162,14 +169,14 @@ def _split(t, heads):
 
 # the kernel pads S to 16-row steps: 1, 2, 3 or 4 steps, each edge, with
 # Sq = Sk and with Sk = 65 - Sq
-@pytest.mark.parametrize("D", [40, 160])
-def test_small_seq_length_edges(gen, D):
+def test_small_seq_length_edges(gen):
     B, H = 6, 3
-    _each([(Sq, Sk) for Sq in (1, 16, 17, 22, 31, 32, 33, 63, 64)
+    _each([(D, Sq, Sk) for D in (40, 160)
+           for Sq in (1, 16, 17, 22, 31, 32, 33, 63, 64)
            for Sk in (Sq, 65 - Sq)],
-          lambda Sq, Sk: _small_check(_randn(gen, B, H, Sq, D),
-                                      _randn(gen, B, H, Sk, D),
-                                      _randn(gen, B, H, Sk, D)))
+          lambda D, Sq, Sk: _small_check(_randn(gen, B, H, Sq, D),
+                                         _randn(gen, B, H, Sk, D),
+                                         _randn(gen, B, H, Sk, D)))
 
 
 # units are one sequence times up to 8 heads; one persistent CTA per SM:
@@ -190,15 +197,14 @@ def test_small_seq_tokenmajor_counts(gen):
            (5, 1, 80), (301, 5, 72)], check)
 
 
-@pytest.mark.parametrize("S", [22, 64])
-def test_small_seq_last_head_of_token_major_storage(gen, S):
+def test_small_seq_last_head_of_token_major_storage(gen):
     """q/k/v are head splits of (N, S, H+1, D) storage with the extra head
     dropped, so the bytes past each head's D (and past the last head) hold
     other data: the kernel must read none of them, and must write nothing
     but the output's own heads."""
     N, H = 37, 4
 
-    def check(D):
+    def check(S, D):
         def view():
             return _randn(gen, N, S, H + 1, D)[:, :, :H].permute(0, 2, 1, 3)
         q, k, v = view(), view(), view()
@@ -212,20 +218,20 @@ def test_small_seq_last_head_of_token_major_storage(gen, S):
                A.small_seq_attention_ref(q.float(), k.float(), v.float(),
                                          D ** -0.5))
         assert bool((out[:, :, H] == 7.0).all())
-    _each([(D,) for D in (40, 72, 80, 152, 160)], check)
+    _each([(S, D) for S in (22, 64) for D in (40, 72, 80, 152, 160)], check)
 
 
-@pytest.mark.parametrize("layout", ["contiguous", "head_split"])
-def test_small_seq_head_dims_and_layouts(gen, layout):
+def test_small_seq_head_dims_and_layouts(gen):
     B, H, S = 50, 8, 22
 
-    def check(D):
+    def check(layout, D):
         if layout == "contiguous":
             q, k, v = (_randn(gen, B, H, S, D) for _ in range(3))
         else:
             q, k, v = (_split(_randn(gen, B, S, H * D), H) for _ in range(3))
         _small_check(q, k, v)
-    _each([(D,) for D in (40, 72, 80, 152, 160)], check)
+    _each([(layout, D) for layout in ("contiguous", "head_split")
+           for D in (40, 72, 80, 152, 160)], check)
 
 
 def test_small_seq_rows_far_below_the_rest(gen):
@@ -242,13 +248,14 @@ def test_small_seq_rows_far_below_the_rest(gen):
     _each([(S, D) for S in (22, 64) for D in (40, 160)], check)
 
 
-@pytest.mark.parametrize("N,S,d", [(2040, 22, 80), (22, 64, 160)])
-def test_small_seq_is_deterministic(gen, N, S, d):
-    heads = 8
-    q, k, v = (_randn(gen, N, S, heads * d) for _ in range(3))
-    a = A.small_seq_attention_tokenmajor(q, k, v, heads, d ** -0.5)
-    b = A.small_seq_attention_tokenmajor(q, k, v, heads, d ** -0.5)
-    assert torch.equal(a, b)
+def test_small_seq_is_deterministic(gen):
+    def check(N, S, d):
+        heads = 8
+        q, k, v = (_randn(gen, N, S, heads * d) for _ in range(3))
+        a = A.small_seq_attention_tokenmajor(q, k, v, heads, d ** -0.5)
+        b = A.small_seq_attention_tokenmajor(q, k, v, heads, d ** -0.5)
+        assert torch.equal(a, b)
+    _each([(2040, 22, 80), (22, 64, 160)], check)
 
 
 def test_kernels_refuse_bad_operands(gen):
@@ -340,14 +347,14 @@ def test_flash_d72_hiera_stage4_entry(gen):
     _each([(1,), (16,), (128,)], check)
 
 
-@pytest.mark.parametrize("N", [16, 1024])
-def test_small_seq_hiera_qpool_shape(gen, N):
+def test_small_seq_hiera_qpool_shape(gen):
     """Hiera's stage-2 entry: 16 pooled queries over an 8x8 window of 64
     keys, 4 heads of 72, through the (B, H, S, D) small_seq route."""
     H, D = 4, 72
-    _small_check(_split(_randn(gen, N, 16, H * D), H),
-                 _split(_randn(gen, N, 64, H * D), H),
-                 _split(_randn(gen, N, 64, H * D), H))
+    _each([(16,), (1024,)], lambda N: _small_check(
+        _split(_randn(gen, N, 16, H * D), H),
+        _split(_randn(gen, N, 64, H * D), H),
+        _split(_randn(gen, N, 64, H * D), H)))
 
 
 # ---------------------------------------------------------------------------

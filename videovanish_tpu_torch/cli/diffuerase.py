@@ -14,10 +14,15 @@ On N cards, one process per card:
 
 Every rank computes (the frames shard over the mesh of
 `pipeline/infill.py`) and rank 0 alone writes the output.
+
+`--model vace` (the port's one flag beyond the JAX CLI's) removes with
+Wan2.1-VACE in place of the ProPainter prior and DiffuEraser: one pass on
+one card, so it refuses --chunked on, a prior video and a mesh.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 from videovanish_tpu_torch.cli import device_from_env
@@ -28,6 +33,9 @@ from videovanish_tpu_torch.pipeline import infill
 from videovanish_tpu_torch.video import (
     load_video_frames_from_path, probe_video, write_video_frames_to_path,
 )
+
+# the removers of `--model`, the default first
+MODELS = ("diffueraser", "vace")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,7 +62,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Stream long videos through overlapped chunks with "
                          "resume support (auto: on for long videos when no "
                          "prior video is given).")
+    ap.add_argument("--model", choices=list(MODELS), default=MODELS[0],
+                    help="Remover: diffueraser (ProPainter prior + "
+                         "DiffuEraser) or vace (Wan2.1-VACE; one pass on "
+                         "one card).")
     return ap
+
+
+def _use_model(model: str) -> None:
+    """Install the config with `infill.model` set, where it differs."""
+    cfg = infill._get_config()
+    if cfg.infill.model != model:
+        infill.set_config(dataclasses.replace(
+            cfg, infill=dataclasses.replace(cfg.infill, model=model)))
 
 
 def main(argv=None) -> None:
@@ -63,8 +83,13 @@ def main(argv=None) -> None:
     initialize_distributed(device_type=device)
     assert os.path.isfile(args.color_video), "input video missing"
     out_video = args.out or (args.color_video + "_vanished.mkv")
+    _use_model(args.model)
+    if args.model == "vace" and args.chunked == "on":
+        raise SystemExit("--model vace runs a clip in one pass: "
+                         "--chunked on is DiffuEraser's")
 
-    if args.chunked != "off" and args.prior_video is None:
+    if args.chunked != "off" and args.prior_video is None \
+            and args.model != "vace":
         from videovanish_tpu_torch.pipeline.chunking import (
             vanish_video_chunked,
         )

@@ -1,11 +1,12 @@
-"""Config tree of the port: the SAM2, ProPainter, DiffuEraser, infill,
-chunking and mesh settings.
+"""Config tree of the port: the SAM2, ProPainter, DiffuEraser, Wan (VACE),
+infill, chunking and mesh settings.
 
 A copy of the matching dataclasses of videovanish_tpu/config.py with the
 same defaults (the port keeps its own copy and imports nothing of the JAX
 package), except that the checkpoint paths name torch files in place of
 orbax directories. Widths are the published SAM2.1 Hiera-L, ProPainter and
-SD1.5 ones; `tiny_config` is the CPU-runnable smoke size.
+SD1.5 ones; `WanConfig`, the port's own, holds Wan2.1-VACE-1.3B's.
+`tiny_config` is the CPU-runnable smoke size.
 """
 from __future__ import annotations
 
@@ -119,12 +120,60 @@ class DiffuEraserConfig:
 
 
 @dataclass(frozen=True)
+class WanConfig:
+    """Wan2.1-VACE-1.3B (`VaceWanModel`, the Wan-VAE and the flow-matching
+    UniPC sampler; github.com/Wan-Video/Wan2.1 `wan/configs/wan_t2v_1_3B.py`,
+    `wan/modules/vace_model.py`, `wan/modules/vae.py`) as the `"vace"`
+    remover of `run_infill_on_frames`. The umT5 encoder is not run: the
+    prompt's and the negative prompt's embeddings are seeded constants of
+    the weights, `text_tokens` rows each."""
+    # DiT
+    dim: int = 1536
+    ffn_dim: int = 8960
+    freq_dim: int = 256
+    num_heads: int = 12
+    num_layers: int = 30
+    text_dim: int = 4096
+    text_len: int = 512
+    in_dim: int = 16
+    out_dim: int = 16
+    patch_size: tuple[int, int, int] = (1, 2, 2)
+    eps: float = 1e-6
+    # VACE context blocks: main block vace_layers[j] adds hint j
+    vace_layers: tuple[int, ...] = tuple(range(0, 30, 2))
+    vace_in_dim: int = 96
+    # Wan-VAE
+    vae_dim: int = 96
+    vae_z_dim: int = 16
+    vae_dim_mult: tuple[int, ...] = (1, 2, 4, 4)
+    vae_num_res_blocks: int = 2
+    vae_temporal_downsample: tuple[bool, ...] = (False, True, True)
+    vae_mean: tuple[float, ...] = (
+        -0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
+        0.4134, -0.0715, 0.5517, -0.3632, -0.1922, -0.9497, 0.2503, -0.2921)
+    vae_std: tuple[float, ...] = (
+        2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
+        3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1803, 1.7423, 2.1547)
+    # sampler (FlowUniPCMultistepScheduler, order 2, bh2; VACE's shift)
+    sample_steps: int = 50
+    sample_shift: float = 16.0
+    guide_scale: float = 5.0
+    # rows of the prompt's and the negative prompt's embeddings
+    text_tokens: tuple[int, int] = (32, 126)
+    # inference size: the long side at most this, each side a multiple of
+    # 16 (the VAE's stride times the patch); 4k+1 frames
+    max_img_size: int = 832
+
+
+@dataclass(frozen=True)
 class InfillConfig:
-    """run_infill_on_frames defaults."""
+    """run_infill_on_frames defaults. `model` picks the remover:
+    "diffueraser" (over the ProPainter prior) or "vace" (Wan2.1-VACE)."""
     mask_dilation_iter: int = 8
     keep_unmasked_original: bool = True
     feather_px: int = 3
     max_img_size: int = 960
+    model: str = "diffueraser"
 
 
 @dataclass(frozen=True)
@@ -141,6 +190,7 @@ class VVConfig:
     sam2: Sam2Config = field(default_factory=Sam2Config)
     propainter: ProPainterConfig = field(default_factory=ProPainterConfig)
     diffueraser: DiffuEraserConfig = field(default_factory=DiffuEraserConfig)
+    wan: WanConfig = field(default_factory=WanConfig)
     infill: InfillConfig = field(default_factory=InfillConfig)
     chunking: ChunkingConfig = field(default_factory=ChunkingConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
@@ -181,5 +231,16 @@ def tiny_config() -> VVConfig:
             memory_attention_d_model=64,
             max_obj_ptrs_in_encoder=4,
         ),
+        wan=tiny_wan_config(),
         chunking=ChunkingConfig(chunk_frames=8, overlap_frames=2),
     )
+
+
+def tiny_wan_config() -> WanConfig:
+    """Wan at CPU-test widths: head dim 32, four blocks, two VACE blocks,
+    a VAE of base width 8 (mid-block head 32), three sampler steps (both
+    orders of the predictor and the corrector)."""
+    return WanConfig(
+        dim=64, ffn_dim=96, freq_dim=32, num_heads=2, num_layers=4,
+        text_dim=48, text_len=16, vace_layers=(0, 2), vae_dim=8,
+        sample_steps=3, text_tokens=(5, 7), max_img_size=64)

@@ -9,6 +9,9 @@
 //   _flash_kernel_iota   (:120) lane-aligned head dims (the VAE mid-block's
 //                               single 512-wide head; SAM2 memory
 //                               self-attention, one 256-wide head)
+// and, beyond the JAX package, Wan2.1's DiT (self-attention over f*h*w
+// tokens and cross-attention to 512 text rows, D = 128) and the Wan-VAE's
+// mid-block (one 384-wide head over a frame's pixels).
 // Both compute softmax(q k^T * scale) v with an f32 running max and sum;
 // one template covers both.
 //
@@ -49,7 +52,8 @@
 //     key tile, and only when Sk is ragged, is masked;
 //   * D <= 160 (SPLIT = 1): each consumer warpgroup owns 64 query rows and
 //     all output columns (3 warpgroups, 192 rows, at D = 40; 2 at D = 72,
-//     80 and 160, whose accumulators need the registers). Each warpgroup
+//     80, 128 and 160, whose accumulators need the registers; 128-key
+//     tiles up to D = 128, 64 at D = 160). Each warpgroup
 //     issues S of tile kt together with P V of tile kt-1 and computes the
 //     exponentials of tile kt while that P V runs; named barriers pass the
 //     turn to issue products from warpgroup to warpgroup (ping-pong);
@@ -58,7 +62,7 @@
 //     4-slot K/V ring, since one warpgroup has nothing to overlap its loads
 //     with but the loads themselves. The 16 columns sit in a zero-filled
 //     64-column box (TMA reads 32 bytes a row);
-//   * D = 256 and 512 (SPLIT = 2): a 64 x D f32 output needs more than one
+//   * D = 256, 384 and 512 (SPLIT = 2): a 64 x D f32 output needs more than one
 //     warpgroup's registers next to S and P (D = 256: 128 a thread), so two
 //     warpgroups share 64 query rows and own D / 2 output columns each.
 //     Warpgroup 0 computes the scores and softmax
@@ -76,7 +80,7 @@ namespace vv {
 
 // DK: head dim padded to 16 (the q k^T depth); BN: keys per tile; STAGES:
 // K/V ring depth; SPLIT: warpgroups sharing one 64-row query block (1, or 2
-// at D = 512, where warpgroup 0 computes the scores and hands P to
+// at D >= 256, where warpgroup 0 computes the scores and hands P to
 // warpgroup 1 through shared memory); NWG: consumer warpgroups (warpgroup
 // NWG is the producer)
 template <int DK, int BN, int STAGES, int SPLIT, int NWG>
@@ -489,11 +493,13 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
 }  // namespace vv
 
 // Padded head dims this library is built for: those the port dispatches
-// (SD1.5 heads of 40/80/160, the VAE's 512; SAM2's 16, 72 and 256); the
-// wrapper refuses others.
+// (SD1.5 heads of 40/80/160, the VAE's 512; SAM2's 16, 72 and 256; Wan's
+// DiT heads of 128 and its VAE's single 384-wide head); the wrapper
+// refuses others.
 extern "C" int vv_flash_supported(int dp) {
   switch (dp) {
-    case 16: case 48: case 80: case 160: case 256: case 512:
+    case 16: case 48: case 80: case 128: case 160: case 256: case 384:
+    case 512:
       return 1;
     default:
       return 0;
@@ -518,8 +524,10 @@ extern "C" int vv_flash_attn_fwd(const void* q, const void* k, const void* v,
     case 16:  return vv::launch_flash<16, 128, 4, 1, 1>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 48:  return vv::launch_flash<48, 128, 2, 1, 3>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 80:  return vv::launch_flash<80, 128, 2, 1, 2>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 128: return vv::launch_flash<128, 128, 2, 1, 2>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 160: return vv::launch_flash<160, 64, 2, 1, 2>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 256: return vv::launch_flash<256, 64, 2, 2, 2>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
+    case 384: return vv::launch_flash<384, 64, 1, 2, 2>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
     case 512: return vv::launch_flash<512, 64, 1, 2, 2>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2e, s);
     default:  return static_cast<int>(cudaErrorInvalidValue);
   }

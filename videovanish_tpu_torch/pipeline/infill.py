@@ -7,6 +7,12 @@ runs on the device: binarize + dilate the masks, the ProPainter prior
 the prior stays on the device at its internal resolution, and only the
 finished frames come back to the host.
 
+The config's `infill.model` picks the remover. "diffueraser" (the
+default) is the above. "vace" runs Wan2.1-VACE (`models/wan/`) in its
+place: dilate, no prior, `WanVace.inpaint` inside the stage
+`wan_denoise`, the same composite. It runs on one device and takes no
+prior, no latent carry (the chunked driver) and no mesh: those raise.
+
 The models are lazy singletons, as in the reference, built with the
 weights of the config's checkpoint files where they exist. Stages are
 timed as in the JAX package (`utils/observability.py`: mask_dilate,
@@ -41,6 +47,7 @@ from videovanish_tpu_torch.models.diffueraser.model import (
 from videovanish_tpu_torch.models.propainter.model import (
     Propainter, load_checkpoints as load_propainter_checkpoints,
 )
+from videovanish_tpu_torch.models.wan.model import WanVace
 from videovanish_tpu_torch.ops.composite import feathered_composite
 from videovanish_tpu_torch.ops.morphology import binarize_and_dilate
 from videovanish_tpu_torch.utils.observability import (
@@ -50,6 +57,7 @@ from videovanish_tpu_torch.utils.observability import (
 # lazy model singletons
 video_inpainting_sd = None
 propainter = None
+wan = None
 last_ckpt = None
 _config = None
 _mesh = "unset"  # resolved on first use: a DeviceMesh or None
@@ -65,10 +73,11 @@ def _get_config():
 def set_config(cfg) -> None:
     """Install a non-default config (tests use tiny_config); drops the
     model singletons and the mesh decision."""
-    global _config, video_inpainting_sd, propainter, last_ckpt, _mesh
+    global _config, video_inpainting_sd, propainter, wan, last_ckpt, _mesh
     _config = cfg
     video_inpainting_sd = None
     propainter = None
+    wan = None
     last_ckpt = None
     _mesh = "unset"
 
@@ -154,6 +163,30 @@ def get_propainter(device="cuda"):
     return propainter
 
 
+def get_wan(device="cuda"):
+    """The WanVace singleton on `device`, built on first use with seeded
+    random weights (the published files are not read yet)."""
+    global wan
+    if wan is None or wan.device != torch.device(device):
+        wan = None
+        wan = WanVace(config=_get_config().wan, device=device)
+    return wan
+
+
+def _vace_refusals(propainer_frames, frame_offset, latent_carry,
+                   return_latent_tail, device) -> None:
+    """What the "vace" route does not take raises here."""
+    if propainer_frames is not None:
+        raise ValueError("infill model 'vace' takes no prior: it "
+                         "generates the hole from the frames alone")
+    if frame_offset or latent_carry is not None or return_latent_tail:
+        raise ValueError("infill model 'vace' runs a clip in one pass: the "
+                         "chunked driver's latent carry is DiffuEraser's")
+    if _get_mesh(device) is not None:
+        raise ValueError("infill model 'vace' runs on one device; the "
+                         "mesh path is DiffuEraser's (VV_MESH=0)")
+
+
 def _prior(frames, dilated, prog, device):
     """The ProPainter prior of (T, H, W, 3) frames under (T, H, W) dilated
     masks: (T, h, w, 3) uint8 on the device at its internal resolution."""
@@ -221,6 +254,13 @@ def run_infill_on_frames(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
     """
     prog = prog or (lambda *_a, **_k: None)
     device = torch.device(device)
+    remover = _get_config().infill.model
+    if remover not in ("diffueraser", "vace"):
+        raise ValueError(f"infill model {remover!r}: expected "
+                         "'diffueraser' or 'vace'")
+    if remover == "vace":
+        _vace_refusals(propainer_frames, frame_offset, latent_carry,
+                       return_latent_tail, device)
     if preview:
         tier = _get_config().diffueraser.preview_img_size
         if tier:
@@ -235,22 +275,15 @@ def run_infill_on_frames(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
             dilated = dilate_masks(mask_frames, mask_dilation_iter, device)
 
         prog(10, "loading weights")
-        model = get_model(ckpt or "2-Step", device)
-        if propainer_frames is None:
-            prog(20, "running propainter prior")
-            propainer_frames = _prior(frames, dilated, prog, device)
-        prog(50, "running DiffuEraser")
-        with stage_timer("diffueraser_denoise", frames=T):
-            inpainted = model.forward(
-                frames, dilated, propainer_frames, max_img_size=max_img_size,
-                mask_dilation_iter=0, guidance_scale=None, progress=prog,
-                # alpha is 0 beyond feather_px outside the dilated mask, so
-                # only the mask's bounding box (+ a feather-covering margin)
-                # of the model output is used
-                output_roi="auto" if keep_unmasked_original else None,
-                roi_margin=16 + int(np.ceil(feather_px)),
-                frame_offset=frame_offset, latent_carry=latent_carry,
-                return_latent_tail=return_latent_tail)
+        if remover == "vace":
+            with stage_timer("wan_denoise", frames=T):
+                inpainted = get_wan(device).inpaint(
+                    frames, dilated, max_img_size, progress=prog)
+        else:
+            inpainted = _diffuerase(
+                frames, dilated, propainer_frames, ckpt, max_img_size,
+                keep_unmasked_original, feather_px, prog, frame_offset,
+                latent_carry, return_latent_tail, device)
         carry = None
         if return_latent_tail:
             inpainted, carry = inpainted
@@ -269,3 +302,27 @@ def run_infill_on_frames(frames_rgb, mask_frames, mask_dilation_iter: int = 8,
     if return_latent_tail:
         return result, tuple(t.cpu().numpy() for t in carry)
     return result
+
+
+def _diffuerase(frames, dilated, propainer_frames, ckpt, max_img_size,
+                keep_unmasked_original, feather_px, prog, frame_offset,
+                latent_carry, return_latent_tail, device):
+    """The "diffueraser" remover: the prior (unless passed in), then
+    DiffuEraser.forward's result."""
+    T = int(frames.shape[0])
+    model = get_model(ckpt or "2-Step", device)
+    if propainer_frames is None:
+        prog(20, "running propainter prior")
+        propainer_frames = _prior(frames, dilated, prog, device)
+    prog(50, "running DiffuEraser")
+    with stage_timer("diffueraser_denoise", frames=T):
+        return model.forward(
+            frames, dilated, propainer_frames, max_img_size=max_img_size,
+            mask_dilation_iter=0, guidance_scale=None, progress=prog,
+            # alpha is 0 beyond feather_px outside the dilated mask, so
+            # only the mask's bounding box (+ a feather-covering margin)
+            # of the model output is used
+            output_roi="auto" if keep_unmasked_original else None,
+            roi_margin=16 + int(np.ceil(feather_px)),
+            frame_offset=frame_offset, latent_carry=latent_carry,
+            return_latent_tail=return_latent_tail)
